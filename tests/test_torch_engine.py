@@ -1,0 +1,106 @@
+"""The port's RANSAC round against the JAX engine's, both on the CPU.
+
+View 0, seed 0, H = 2 hypotheses (2 x the problem's roots paths).
+Sampling and target construction must be bit-equal.
+
+The JAX engine's CPU backend tracks with its full-pivot XLA oracle, the
+port with the kernel's restricted pivoting.  On the committed problem
+many path endings are close to singular, so two float32 trackers that
+differ only in rounding end some paths differently.  The JAX package's
+own two trackers (its Pallas kernel in interpret mode and its XLA oracle)
+disagree on 10 converged, 3 inf and 8 pruned flags of these 614 paths,
+1.6 % at most, and a 1e-7 relative perturbation of the port's start roots
+flips 8 converged and 10 pruned flags of its own.  So the reference's
+cross-check band (cli.py _CC_FLIP_FRAC, 0.5 %, measured on its own
+problem) does not hold here; per-path flags and the converged count may
+differ by 3.2 % of paths (twice the JAX package's own disagreement), and
+the best supports by 0.2 % of the edgels (floor 5), the reference's
+_CC_SUP_FRAC.  tests/test_torch_tracker.py holds the tracker to the JAX
+kernel step by step.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from trifocal_pose_estimation_using_improved_gpuhc_tpu import engine as jengine
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
+    ransac as jransac,
+)
+from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import ransac
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import config
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "data", "synth_trifocal")
+_H = 2
+_FLIP_FRAC = 0.032
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two intra-op threads: the tier-1 command runs several pytest workers
+    on one CPU, and oversubscribed OpenMP threads slow the many small ops
+    of track_plain by orders of magnitude."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def rounds():
+    cfg = config.EngineConfig(data_root=DATA)
+    port = engine.TrifocalPoseEngine(cfg, device="cpu")
+    view = port.load_view(0)
+    rr = port.run_round(view, seed=0, num_hypotheses=_H)
+    jcfg = dataclasses.replace(cfg, problem=config.problem_config(cfg))
+    ref = jengine.TrifocalPoseEngine(jcfg)
+    rj = ref.run_round(view, seed=0, num_hypotheses=_H,
+                       collect_solutions=True)
+    return view, rr, rj, _H * port.problem.num_tracks
+
+
+def test_sampling_and_targets_bit_equal():
+    cfg = config.EngineConfig(data_root=DATA)
+    view = engine.TrifocalPoseEngine(cfg).load_view(0)
+    n = view.edge_locations.shape[0]
+    s = ransac.sample_edgel_triplets(0, n, 100)
+    assert np.array_equal(s, jransac.sample_edgel_triplets(0, n, 100))
+    t = ransac.build_target_params(view.edge_locations, view.edge_tangents, s)
+    tj = jransac.build_target_params(view.edge_locations, view.edge_tangents, s)
+    assert t.dtype == tj.dtype and np.array_equal(t, tj)
+
+
+@pytest.mark.parametrize("flag", ["converged", "inf_fail", "pruned"])
+def test_round_flags_within_band(rounds, flag):
+    _, rr, rj, n_paths = rounds
+    a = getattr(rr, flag)
+    b = np.asarray(getattr(rj.solutions, flag))
+    assert a.shape == b.shape == (n_paths,)
+    assert int((a != b).sum()) <= int(_FLIP_FRAC * a.size)
+
+
+def test_round_supports_within_band(rounds):
+    view, rr, rj, n_paths = rounds
+    tol = max(5, int(0.002 * view.edge_locations.shape[0]))
+    assert abs(rr.best_support21 - rj.best_support21) <= tol
+    assert abs(rr.best_support31 - rj.best_support31) <= tol
+    assert abs(rr.stats.num_converged - rj.stats.num_converged) <= int(
+        _FLIP_FRAC * n_paths)
+    assert rr.num_edgels == rj.num_edgels
+
+
+def test_round_outputs_well_formed(rounds):
+    view, rr, _, n_paths = rounds
+    assert rr.num_steps.shape == (n_paths,)
+    assert rr.num_steps.max() <= 81
+    assert rr.stats.num_paths == n_paths
+    assert rr.track_ms > 0 and rr.total_ms >= rr.track_ms
+    if rr.num_candidates:
+        assert rr.pose_errors is not None
+        for m in rr.best_pose:
+            assert np.isfinite(m).all()

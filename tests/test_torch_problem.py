@@ -1,0 +1,127 @@
+"""The port's problem compiler and tracker constants against the JAX
+package's, on the committed data root: bit-equal, since both compile the
+same integer tables with the same numpy code."""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import (
+    trifocal as jtrifocal,
+)
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import fused as jfused
+from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import config
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "data", "synth_trifocal")
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return config.EngineConfig(data_root=DATA)
+
+
+@pytest.fixture(scope="module")
+def problems(cfg):
+    port = trifocal.TrifocalProblem.load(cfg)
+    jcfg = dataclasses.replace(cfg, problem=config.problem_config(cfg))
+    return port, jtrifocal.TrifocalProblem.load(jcfg)
+
+
+def test_problem_json_dimensions(cfg):
+    with open(os.path.join(config.problem_dir(cfg), "problem.json")) as f:
+        dims = json.load(f)
+    prob = config.problem_config(cfg)
+    for k, v in dims.items():
+        assert getattr(prob, k) == v
+
+
+@pytest.mark.parametrize(
+    "field", [f.name for f in dataclasses.fields(trifocal.FactoredSystem)])
+def test_factored_system_bit_equal(problems, field):
+    port, ref = problems
+    a = getattr(port.factored, field)
+    b = getattr(ref.factored, field)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_problem_arrays_bit_equal(problems):
+    port, ref = problems
+    for name in ("start_params", "start_sols", "hx_table", "ht_table"):
+        assert np.array_equal(getattr(port, name), getattr(ref, name)), name
+    again = trifocal.TrifocalProblem.from_arrays(ref)
+    assert np.array_equal(again.factored.hx_C, ref.factored.hx_C)
+
+
+def test_pad_slots(problems):
+    """pad_params / pad_vars append the constant-1 slots the tables index
+    (parameter num_params, variable num_vars)."""
+    port, _ = problems
+    p = torch.as_tensor(port.start_params)
+    assert torch.equal(trifocal.pad_params(p[:-1]), p)
+    x = trifocal.pad_vars(torch.as_tensor(port.start_sols))
+    assert x.shape == (port.num_tracks, port.num_vars + 1)
+    assert bool((x[:, -1] == 1).all())
+
+
+@pytest.fixture(scope="module")
+def constants(problems):
+    port, ref = problems
+    return fused.FusedConstants.build(port), jfused.FusedConstants.build(ref)
+
+
+def test_constants_layout_bit_equal(constants):
+    c, j = constants
+    assert j.reduced is not None  # the reference takes its condensed path
+    for name in ("perm", "pos_of_var", "row_order"):
+        assert np.array_equal(getattr(c, name), getattr(j, name)), name
+    assert c.depth_rows == j.depth_rows
+    # Hx nonzero order: the reference's fold matrix columns in that order.
+    assert np.array_equal(c.hx_C.T, j.chx[:, :j.k2])
+    assert np.array_equal(c.ht_C.T, j.cht[:, :j.k3])
+
+
+def test_solve_program_covers_every_column(constants):
+    c, j = constants
+    cols = [col for st in c.stages for col in st.cols]
+    assert sorted(cols) == list(range(30))
+    steps = [s for st in c.stages for s in st.steps]
+    assert steps == list(range(30))
+    # The reference's reduced system: its size and column offset.
+    assert len(c.plan.final_cols) == j.reduced.n2
+    assert 30 - len(c.plan.final_cols) == j.reduced.col_off
+
+
+def test_kernel_plan_header(constants):
+    c, _ = constants
+    plan = c.kernel_plan()
+    assert plan.dtype == np.int32
+    assert tuple(plan[:4]) == (30, c.q, 30, len(c.maps))
+    offs = plan[4:12]
+    assert offs[0] == 16 and np.all(np.diff(offs) > 0) and offs[-1] < plan.size
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("solver", "schedule"), ("pair_coef_basis", "abc"), ("predictor", "rk3"),
+    ("eval_structure", "merged"), ("rk_jacobian_reuse", True),
+    ("corrector_jacobian_reuse", 2), ("predictor_handoff", True),
+    ("truncate_paths", False)])
+def test_non_shipped_config_rejected(cfg, knob, value):
+    bad = dataclasses.replace(cfg, hc=dataclasses.replace(cfg.hc,
+                                                          **{knob: value}))
+    with pytest.raises(ValueError, match=knob):
+        config.check_shipped(bad)
+
+
+def test_shipped_config_accepted(cfg):
+    config.check_shipped(cfg)
+    bad = dataclasses.replace(cfg, ransac=dataclasses.replace(
+        cfg.ransac, abort_by_good_sol=True))
+    with pytest.raises(ValueError, match="abort_by_good_sol"):
+        config.check_shipped(bad)

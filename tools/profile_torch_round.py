@@ -1,0 +1,86 @@
+#!/usr/bin/env python3
+"""Profile one RANSAC round of the PyTorch/CUDA port on the card.
+
+    python3 tools/profile_torch_round.py [--hypotheses 100] [--view 0] [--seed 0]
+
+Runs a warm-up round, then one round under ``torch.profiler`` and prints:
+the round's host-clock spans (track_ms, total_ms), the device's busy time
+(the union of all kernel intervals) and idle share over the round, and the
+ten kernels with the most device time.  Needs a CUDA card; exits nonzero
+without one.
+"""
+
+import argparse
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def _union_us(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--hypotheses", type=int, default=100)
+    ap.add_argument("--view", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data-root",
+                    default=os.path.join(ROOT, "data", "synth_trifocal"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_round: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
+        EngineConfig,
+    )
+
+    eng = engine.TrifocalPoseEngine(EngineConfig(data_root=args.data_root),
+                                    device="cuda")
+    view = eng.load_view(args.view)
+    eng.run_round(view, args.seed, args.hypotheses)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rr = eng.run_round(view, args.seed, args.hypotheses)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in kernels]) / 1e3
+    print(f"{torch.cuda.get_device_name(0)}: H={args.hypotheses} "
+          f"round wall {wall_ms:.3f} ms (profiled), track_ms "
+          f"{rr.track_ms:.3f}, total_ms {rr.total_ms:.3f}; device busy "
+          f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.4f}; "
+          f"{len(kernels)} device events")
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3,
+                           n + 1)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"  {ms:10.3f} ms {n:7d}x  {name[:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
