@@ -66,13 +66,23 @@ def rounds():
 
 def test_sampling_and_targets_bit_equal():
     cfg = config.EngineConfig(data_root=DATA)
-    view = engine.TrifocalPoseEngine(cfg).load_view(0)
+    view = engine.TrifocalPoseEngine(cfg, device="cpu").load_view(0)
     n = view.edge_locations.shape[0]
     s = ransac.sample_edgel_triplets(0, n, 100)
     assert np.array_equal(s, jransac.sample_edgel_triplets(0, n, 100))
     t = ransac.build_target_params(view.edge_locations, view.edge_tangents, s)
     tj = jransac.build_target_params(view.edge_locations, view.edge_tangents, s)
     assert t.dtype == tj.dtype and np.array_equal(t, tj)
+
+
+def test_engine_runs_on_the_card_by_default(monkeypatch):
+    """No device means cuda:0; without a card that raises and never falls
+    back to the CPU."""
+    cfg = config.EngineConfig(data_root=DATA)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.TrifocalPoseEngine(cfg)
+    assert engine.TrifocalPoseEngine(cfg, device="cpu").device.type == "cpu"
 
 
 @pytest.mark.parametrize("flag", ["converged", "inf_fail", "pruned"])

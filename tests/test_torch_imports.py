@@ -1,5 +1,7 @@
-"""The torch port imports no jax (it must run on a GPU host without it)."""
+"""The torch port imports no jax and nothing of the JAX package (it must run
+on a GPU host without them)."""
 
+import ast
 import json
 import os
 import subprocess
@@ -8,6 +10,7 @@ import sys
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JAX_PKG = "trifocal_pose_estimation_using_improved_gpuhc_tpu"
 
 _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch",
@@ -17,21 +20,26 @@ _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.fused",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops._kernels",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.ransac",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.reduce",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.schedule",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.segmented",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.data_io",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.evaluation",
 ]
 
 
 @pytest.fixture(scope="module")
-def jax_after_import():
+def loaded_after_import():
     """In a fresh interpreter, import the modules one by one and record
-    which jax modules are loaded after each."""
+    which jax and JAX-package modules are loaded after each."""
     code = (
         "import importlib, json, sys\n"
         "out = {}\n"
         f"for m in {_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "    out[m] = sorted(k for k in sys.modules if k == 'jax' or "
-        "k.startswith(('jax.', 'jaxlib')))\n"
+        f"k.startswith(('jax.', 'jaxlib', {_JAX_PKG!r})))\n"
         "print(json.dumps(out))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -42,5 +50,24 @@ def jax_after_import():
 
 
 @pytest.mark.parametrize("module", _MODULES)
-def test_port_module_imports_no_jax(jax_after_import, module):
-    assert jax_after_import[module] == []
+def test_port_module_imports_no_jax(loaded_after_import, module):
+    assert loaded_after_import[module] == []
+
+
+def _imported_names(path):
+    """Every module name an import statement of the file names."""
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_chip_smoke_names_no_jax_module():
+    """chip_smoke.py imports the port inside main, so it is read, not run."""
+    names = list(_imported_names(os.path.join(REPO, "chip_smoke.py")))
+    assert any(n.startswith("trifocal_pose_estimation_using_improved_gpuhc_"
+                            "torch") for n in names)
+    for n in names:
+        assert not n.startswith((_JAX_PKG, "jax")), n

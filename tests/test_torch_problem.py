@@ -108,7 +108,7 @@ def test_kernel_plan_header(constants):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("solver", "schedule"), ("pair_coef_basis", "abc"), ("predictor", "rk3"),
+    ("solver", "dense"), ("pair_coef_basis", "abc"), ("predictor", "rk3"),
     ("eval_structure", "merged"), ("rk_jacobian_reuse", True),
     ("corrector_jacobian_reuse", 2), ("predictor_handoff", True),
     ("truncate_paths", False)])
@@ -120,8 +120,12 @@ def test_non_shipped_config_rejected(cfg, knob, value):
 
 
 def test_shipped_config_accepted(cfg):
+    """The defaults, the schedule solve and the TrunRANSAC abort round."""
     config.check_shipped(cfg)
+    config.check_shipped(dataclasses.replace(
+        cfg, hc=dataclasses.replace(cfg.hc, solver="schedule"),
+        ransac=dataclasses.replace(cfg.ransac, abort_by_good_sol=True)))
     bad = dataclasses.replace(cfg, ransac=dataclasses.replace(
-        cfg.ransac, abort_by_good_sol=True))
+        cfg.ransac, abort_by_good_sol=1.5))
     with pytest.raises(ValueError, match="abort_by_good_sol"):
         config.check_shipped(bad)

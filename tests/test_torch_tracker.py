@@ -31,6 +31,13 @@ include convergence, divergence and pruning.
 
 The 12-step window of tests/test_fused.py (its own compile of the JAX
 kernel, about a minute on the CPU) runs in the slow tier.
+
+The static-schedule program (solver="schedule", K1e) is held to the JAX
+kernel built with the schedule constants in the same two windows: the
+start from its own position order, the end from the same path states
+carried into its layout (its own perm).  Its flags and step counts equal
+the condensed program's on a short run, as tests/test_reduce.py holds the
+JAX package's pair.
 """
 
 import dataclasses
@@ -251,3 +258,70 @@ def test_kernel_wrapper_refuses_cpu_tensors(setup):
         _kernels.hc_track(x, x.clone(), fused.init_flags(cfg.hc, _TR), efg,
                           torch.as_tensor(c.kernel_plan()), 4, cfg.hc)
     assert _kernels.hc_track.launches == 0
+
+
+@pytest.fixture(scope="module")
+def schedule_setup(setup):
+    """setup's tuple for the schedule program: its constants and the JAX
+    kernel built from the JAX package's schedule constants."""
+    cfg, port, jp, _, _, tgt_all = setup
+    c = fused.FusedConstants.build(port, solver="schedule")
+    jc = jfused.FusedConstants.build(jp, solver="schedule")
+    assert jc.reduced is None
+    assert np.array_equal(c.perm, np.asarray(jc.perm))
+    assert np.array_equal(c.row_order, np.asarray(jc.row_order))
+    hc = dataclasses.replace(cfg.hc, solver="schedule")
+    run = jax.jit(jfused.build_kernel_caller(jc, jp, hc, _TR, _STEPS,
+                                             interpret=True))
+    return dataclasses.replace(cfg, hc=hc), port, jp, c, run, tgt_all
+
+
+def _to_layout(x, src, dst):
+    """Position-order states of program src moved to program dst's order."""
+    return np.ascontiguousarray(x[:, np.argsort(src.perm)][:, dst.perm])
+
+
+def test_schedule_start_window_matches_jax_kernel(schedule_setup):
+    cfg, port, _, c, _, tgt_all = schedule_setup
+    x = np.ascontiguousarray(np.asarray(port.start_sols)[:_TR][:, c.perm])
+    flags = fused.init_flags(cfg.hc, _TR).numpy()
+    stable, calm, (_, _, _, steps) = _compare_window(schedule_setup, x, x,
+                                                     flags, tgt_all[:_TR])
+    assert calm.sum() >= 0.9 * _TR
+    assert int(steps.max()) == _STEPS
+
+
+def test_schedule_end_window_matches_jax_kernel(setup, schedule_setup,
+                                                end_window):
+    x, xl, fl, tgt = end_window
+    c_r, c_s = setup[3], schedule_setup[3]
+    stable, calm, (conv, inf, prn, _) = _compare_window(
+        schedule_setup, _to_layout(x, c_r, c_s), _to_layout(xl, c_r, c_s),
+        fl, tgt)
+    conv, inf, prn = (a.numpy() & stable for a in (conv, inf, prn))
+    assert conv.sum() >= 2 and inf.sum() >= 1 and prn.sum() >= 5
+    assert stable.sum() >= 0.75 * _TR and calm.sum() >= 0.5 * _TR
+
+
+def test_reduced_and_schedule_programs_agree(setup, schedule_setup):
+    """The two programs make the same pivots and updates; only the order
+    of the back-substitution sums differs.  On the first _TR roots over 12
+    steps every flag row (t, dt, success count, ..., step count) is equal,
+    and x within 1e-3 relative."""
+    cfg, port, _, c_r, _, tgt_all = setup
+    c_s = schedule_setup[3]
+    hc = cfg.hc
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]))
+    x0 = np.asarray(port.start_sols)[:_TR]
+    fl = fused.init_flags(hc, _TR)
+
+    def run(c):
+        x = torch.as_tensor(np.ascontiguousarray(x0[:, c.perm]))
+        gx, _, gfl = fused.track_plain(c, hc, x, x, fl, efg, niter=12)
+        return gx.numpy()[:, np.argsort(c.perm)], gfl.numpy()
+
+    (xr, flr), (xs, fls) = run(c_r), run(c_s)
+    np.testing.assert_array_equal(flr, fls)
+    assert int(flr[:, fused._F_NST].max()) == 12
+    scale = np.maximum(np.abs(xr).max(axis=1), 1.0)
+    assert (np.abs(xr - xs).max(axis=1) / scale).max() < 1e-3

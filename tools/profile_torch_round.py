@@ -2,16 +2,21 @@
 """Profile one RANSAC round of the PyTorch/CUDA port on the card.
 
     python3 tools/profile_torch_round.py [--hypotheses 100] [--view 0] [--seed 0]
+                                         [--abort]
 
-Runs a warm-up round, then one round under ``torch.profiler`` and prints:
-the round's host-clock spans (track_ms, total_ms), the device's busy time
-(the union of all kernel intervals) and idle share over the round, and the
-ten kernels with the most device time.  Needs a CUDA card; exits nonzero
-without one.
+Runs a warm-up round of the engine's default configuration (or, with
+``--abort``, of the TrunRANSAC abort round), then one round under
+``torch.profiler``, and prints: the card's name and power limit as
+nvidia-smi gives them, the round's host-clock spans (track_ms,
+total_ms), the device's busy time (the union of all kernel intervals)
+and idle share over the round, and the ten kernels with the most device
+time.  Needs a CUDA card; exits nonzero without one.
 """
 
 import argparse
+import dataclasses
 import os
+import subprocess
 import sys
 import time
 
@@ -41,6 +46,8 @@ def main(argv=None) -> int:
     ap.add_argument("--hypotheses", type=int, default=100)
     ap.add_argument("--view", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--abort", action="store_true",
+                    help="profile the abort round (abort_by_good_sol)")
     ap.add_argument("--data-root",
                     default=os.path.join(ROOT, "data", "synth_trifocal"))
     args = ap.parse_args(argv)
@@ -54,8 +61,14 @@ def main(argv=None) -> int:
         EngineConfig,
     )
 
-    eng = engine.TrifocalPoseEngine(EngineConfig(data_root=args.data_root),
-                                    device="cuda")
+    cfg = EngineConfig(data_root=args.data_root)
+    if args.abort:
+        cfg = dataclasses.replace(cfg, ransac=dataclasses.replace(
+            cfg.ransac, abort_by_good_sol=True))
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0])
+    eng = engine.TrifocalPoseEngine(cfg)
     view = eng.load_view(args.view)
     eng.run_round(view, args.seed, args.hypotheses)  # warm-up
     with profile(activities=[ProfilerActivity.CPU,
@@ -71,7 +84,8 @@ def main(argv=None) -> int:
           f"round wall {wall_ms:.3f} ms (profiled), track_ms "
           f"{rr.track_ms:.3f}, total_ms {rr.total_ms:.3f}; device busy "
           f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.4f}; "
-          f"{len(kernels)} device events")
+          f"{len(kernels)} device events"
+          + (f"; chunks run {rr.chunks_run}" if args.abort else ""))
     by_name = {}
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0))

@@ -2,21 +2,22 @@
 
 The JAX package ``trifocal_pose_estimation_using_improved_gpuhc_tpu`` is the
 reference; this package computes the same RANSAC round on an NVIDIA GPU.
-It imports torch and numpy, never jax: the modules it shares with the
-reference (configuration, data IO, host evaluation, the symbolic solve
-plan) import no jax either.
+It imports torch and numpy, never jax and nothing of the JAX package: the
+host modules it needs from there (configuration, data IO, host
+evaluation, the symbolic solve plans) are its own copies.
 
 Layering (bottom-up):
   csrc/     - the hand-written CUDA path-tracker kernel (hc_track.cu).
-  ops/      - evaluators, the kernel's host-side constants and its plain
-              PyTorch twin, the kernel binding, RANSAC sampling/scoring.
+  ops/      - the symbolic solve plans (schedule, reduce), evaluators, the
+              kernel's host-side constants and its plain PyTorch twin, the
+              kernel binding, the segment loop, RANSAC sampling/scoring.
   models/   - the trifocal 2op1p problem (factored evaluation tables).
-  utils/    - the shipped-configuration check and data-root resolution.
+  utils/    - configuration, data IO, host evaluation.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (  # noqa: F401
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (  # noqa: F401
     EngineConfig,
     HCConfig,
     ProblemConfig,

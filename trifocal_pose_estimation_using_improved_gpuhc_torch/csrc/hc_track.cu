@@ -9,6 +9,18 @@
 // adaptive step size.  The plain PyTorch twin is ops/fused.py::track_plain in
 // this package; both execute the same host-built plan (FusedConstants).
 //
+// The solve is a program of pivot steps read from that plan, one of two:
+//  * "reduced" replaces the reference's condensed elimination
+//    (_fam_forward -> _reduce_forward -> _reduce_backsub): family stages
+//    of 3 or 2 candidates through per-level row maps, then the 14-step
+//    reduced schedule;
+//  * "schedule" replaces its 30-stage static schedule (_solve ->
+//    _eliminate, _backsub): one level, 30 steps of 2 to 30 candidates.
+// A step takes up to 32 candidates, one lane each, so the pivot search is
+// one max butterfly plus a ballot whatever the program; the schedule's
+// longer steps cost more row updates (the loop over live candidates), not
+// more registers or shared memory.
+//
 // What bounds it on the card: not bytes -- a path reads ~3 KB of state and
 // coefficients once and the tables stay in L1/L2 -- but issue latency.  Each
 // step is ~7 evaluate+solve rounds, and a solve is 30 dependent pivot steps
@@ -39,7 +51,7 @@ constexpr int RHS = 30;       // right-hand-side column of the augmented row
 constexpr int LD = 33;        // shared row stride (complex), bank padding
 constexpr int WARPS = 4;      // paths per block
 constexpr int QMAX = 64;      // parameter pairs per path
-constexpr int STEP_INTS = 20; // [level, col, ncand, pad, cand[16]]
+constexpr int STEP_INTS = 36; // [level, col, ncand, pad, cand[32]]
 constexpr unsigned FULL = 0xffffffffu;
 
 // Plan header (see FusedConstants.kernel_plan).
@@ -137,7 +149,8 @@ __device__ void assemble(WarpSmem& s, const int* __restrict__ plan,
   __syncwarp();
 }
 
-// Condensed restricted-pivoting solve of s.m; returns lane v's entry of x.
+// Restricted-pivoting solve of s.m by the plan's pivot program; returns
+// lane v's entry of x.
 __device__ float2 solve(WarpSmem& s, const int* __restrict__ plan, int lane) {
   const int n_step = plan[H_NSTEP];
   const int* steps = plan + plan[H_STEPS];

@@ -21,7 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import data_io
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import data_io
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     EngineConfig,
     problem_config,

@@ -31,12 +31,16 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 # -fmad=false: no multiply-add contraction, so that every product and sum
 # rounds once, as in ops/fused.track_plain (the two then agree bit for bit).
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills, kept in build_logs.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC"]
 
 _lock = threading.Lock()
 _libs: dict = {}
 build_seconds: dict = {}
+build_logs: dict = {}    # name -> the compiler's messages of this build
 
 
 def _nvcc() -> str:
@@ -70,6 +74,7 @@ def load(name: str) -> ctypes.CDLL:
                 raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
             os.replace(tmp, so)
             build_seconds[name] = time.perf_counter() - t0
+            build_logs[name] = proc.stderr + proc.stdout
         lib = ctypes.CDLL(so)
         _libs[name] = lib
         return lib

@@ -8,30 +8,37 @@ TrunPaths depth pruning, an RK4 predictor, a Newton corrector of at most
 
 * ``FusedConstants.build`` ports the production subset of the reference's
   constants: the variable permutation and the equation-row order of the
-  condensed solve (``ops/reduce.py``), the Hx nonzero order, the depth
-  positions, plus the solve program and evaluation tables both
-  implementations below execute.  The TPU's one-hot matmul constants are
-  not ported: the card gathers by index.
+  solve, the Hx nonzero order, the depth positions, plus the solve program
+  and evaluation tables both implementations below execute.  The TPU's
+  one-hot matmul constants are not ported: the card gathers by index.
 * ``track_plain`` is the whole step loop on batch-first complex64 tensors.
 * ``csrc/hc_track.cu`` (bound in ``ops/_kernels.py``) is the same loop as
   one warp per path; ``make_track_fn`` launches it for CUDA tensors and
   runs ``track_plain`` for CPU tensors.
 
-Everything runs in the permuted space of the condensed solve: variable
-``perm[i]`` sits at position ``i``, equation ``row_order[r]`` at row ``r``.
-The augmented system is (30, 32): 30 position columns, the right-hand side
-at column 30, one zero pad column.
+Everything runs in the permuted space of the solve: variable ``perm[i]``
+sits at position ``i``, equation ``row_order[r]`` at row ``r``.  The
+augmented system is (30, 32): 30 position columns, the right-hand side at
+column 30, one zero pad column.
 
-The solve is the condensed elimination of ``ops/reduce.py``, replayed as a
-program of pivot steps on the whole matrix: each step picks, among its
-candidate rows not yet used as pivots, the largest |Re|+|Im| entry of its
-column (first hit in candidate order), scales by conj(pivot)/|pivot|^2
-with a zero pivot's |pivot|^2 replaced by 1, and eliminates the column
-from the other live candidates.  Family groups of one level run as one
-stage; the rows a level's groups leave behind (in ascending slot order)
-are looked up through a per-path row map, which is all that the
-reference's compaction does.  Back-substitution walks the steps in
-reverse using the pivot rows, which no later step modifies.
+The solve is a program of pivot steps on the whole matrix, built on the
+host from one of two symbolic plans (``HCConfig.solver``):
+
+* ``"reduced"``: the condensed elimination of ``ops/reduce.py``.  Family
+  groups of one level run as one stage; the rows a level's groups leave
+  behind (in ascending slot order) are looked up through a per-path row
+  map, which is all that the reference's compaction does.
+* ``"schedule"``: the 30-step static schedule of ``ops/schedule.py``
+  (the reference's ``_solve`` -> ``_eliminate``/``_backsub``).  One level,
+  no row maps; position ``s`` is step ``s``'s column, and its candidate
+  rows come in the interval row order (``find_interval_row_order``).
+
+Each step picks, among its candidate rows not yet used as pivots, the
+largest |Re|+|Im| entry of its column (first hit in candidate order, a NaN
+winning as in ``torch.argmax``), scales by conj(pivot)/|pivot|^2 with a
+zero pivot's |pivot|^2 replaced by 1, and eliminates the column from the
+other live candidates.  Back-substitution walks the steps in reverse using
+the pivot rows, which no later step modifies.
 """
 
 from __future__ import annotations
@@ -42,11 +49,11 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import reduce as redu
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import schedule as sched
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models.trifocal import (
     TrifocalProblem,
 )
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import reduce as redu
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import schedule as sched
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     HCConfig,
 )
@@ -57,7 +64,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
 _F_T, _F_DT, _F_SC, _F_EZ, _F_CK, _F_INF, _F_PRN, _F_NST = range(8)
 N_FLAGS = 8
 WIDTH = 32       # augmented row: 30 columns, rhs, pad
-CMAX = 16        # candidate slots per step in the kernel's plan
+CMAX = 32        # candidate slots per step in the kernel's plan: one lane each
 STEP_INTS = 4 + CMAX
 QMAX = 64        # parameter pairs the kernel holds per path
 
@@ -86,7 +93,8 @@ class FusedConstants:
     nz_row: np.ndarray        # (NNZ,) row of each nonzero in that order
     nz_col: np.ndarray        # (NNZ,) position column of each nonzero
     depth_rows: Tuple[int, ...]   # positions of depth vars 0..7
-    plan: redu.ReductionPlan
+    solver: str               # "reduced" or "schedule": the program below
+    plan: Optional[redu.ReductionPlan]   # the condensed plan ("reduced")
     stages: Tuple[Stage, ...]
     map0: np.ndarray          # (n,) level-0 row index -> row
     maps: Tuple[np.ndarray, ...]  # level l+1 from level l: (n_l+1, 4) of
@@ -113,17 +121,24 @@ class FusedConstants:
         return sum(len(s.steps) for s in self.stages)
 
     @classmethod
-    def build(cls, problem: TrifocalProblem) -> "FusedConstants":
+    def build(cls, problem: TrifocalProblem,
+              solver: str = "reduced") -> "FusedConstants":
+        """Constants of the ``solver`` program.  As in the reference,
+        "reduced" falls back to the schedule when the Jacobian pattern has
+        no condensation (``reduce.build_reduction`` returns None)."""
+        if solver not in ("reduced", "schedule"):
+            raise ValueError(f"unknown solver {solver!r}")
         f = problem.factored
         n = problem.num_vars
         nnz = f.hx_C.shape[1]
         pattern = f.hx_scatter.reshape(n, n) != nnz
-        plan = redu.build_reduction(pattern)
-        if plan is None:
-            raise ValueError(
-                "the Jacobian pattern has no condensed elimination plan; "
-                "the torch port implements only solver='reduced'")
-        perm, row_order = _reduced_perm_rows(plan)
+        plan = redu.build_reduction(pattern) if solver == "reduced" else None
+        if plan is not None:
+            perm, row_order = _reduced_perm_rows(plan)
+        else:
+            schedule = sched.build_schedule(pattern)
+            perm = np.array([st.col for st in schedule.steps], np.int32)
+            row_order = sched.find_interval_row_order(schedule)
         pos_of_var = np.argsort(perm).astype(np.int32)
         pos_of_row = np.argsort(row_order).astype(np.int32)
 
@@ -139,7 +154,10 @@ class FusedConstants:
         nz_col = np.array([e[1] for e in entries], np.int32)
         nz_order = np.array([e[2] for e in entries], np.int32)
 
-        stages, map0, maps = _solve_program(plan, pos_of_var, pos_of_row)
+        if plan is not None:
+            stages, map0, maps = _solve_program(plan, pos_of_var, pos_of_row)
+        else:
+            stages, map0, maps = _schedule_program(schedule, pos_of_row)
 
         pv = np.append(pos_of_var, n).astype(np.int32)  # homogeneous stays n
         return cls(
@@ -147,6 +165,7 @@ class FusedConstants:
             pos_of_row=pos_of_row, nz_order=nz_order, nz_row=nz_row,
             nz_col=nz_col,
             depth_rows=tuple(int(pos_of_var[v]) for v in range(8)),
+            solver="reduced" if plan is not None else "schedule",
             plan=plan, stages=stages, map0=map0, maps=maps,
             qa=pv[f.qm_a], qb=pv[f.qm_b],
             ca=pv[f.cm_a], cb=pv[f.cm_b], cc=pv[f.cm_c],
@@ -292,6 +311,18 @@ def _solve_program(plan: redu.ReductionPlan, pos_of_var, pos_of_row):
     if step != plan.n:
         raise ValueError(f"solve program has {step} steps for {plan.n} columns")
     return tuple(stages), pos_of_row.astype(np.int32), tuple(maps)
+
+
+def _schedule_program(schedule: sched.SolveSchedule, pos_of_row):
+    """Stages executing the static schedule: step s eliminates position
+    column s (perm is the schedule's column order), its candidates are the
+    original equations of ``schedule.steps[s].rows`` in row-position
+    order, all on level 0, whose row map is ``pos_of_row``."""
+    stages = tuple(
+        Stage(level=0, steps=(s,), cols=(s,),
+              cands=(tuple(sorted(st.rows, key=lambda r: pos_of_row[r])),))
+        for s, st in enumerate(schedule.steps))
+    return stages, pos_of_row.astype(np.int32), ()
 
 
 # ---------------------------------------------------------------------------
@@ -549,14 +580,18 @@ def _next_map(rmap, used, spec):
 
 def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
                 xl: torch.Tensor, flags: torch.Tensor, efg: torch.Tensor,
-                niter: Optional[int] = None, tables: Optional[_Tables] = None):
+                niter: Optional[int] = None, tables: Optional[_Tables] = None,
+                work: Optional[dict] = None):
     """Run up to ``niter`` HC steps (default max_steps + 1) on resumable
     state, in plain torch.  x, xl (B, 30) complex64 in position order,
     flags (B, 8) float32, efg (B, 3, Q) complex64.  Returns new
     (x, xl, flags); the inputs are not modified.
 
     Paths are independent, so each step runs on the still-active paths
-    only (a finished path's state is final, as in the kernel)."""
+    only (a finished path's state is final, as in the kernel).  ``work``,
+    if given, counts what the paths really did: ``steps`` (path-steps
+    that ran the predictor) and ``newton`` (path corrector iterations),
+    added to its entries; both are known on the host at no cost."""
     tb = tables or _Tables(consts, x.device)
     niter = cfg.max_steps + 1 if niter is None else niter
     st = torch.stack([*_planes(x), *_planes(xl)], dim=1)   # (B, 4, 30)
@@ -569,12 +604,13 @@ def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
         idx = act.nonzero()[:, 0]
         if idx.numel() == 0:
             break
-        st[idx], flags[idx] = _step(tb, cfg, st[idx], flags[idx], ef[idx])
+        st[idx], flags[idx] = _step(tb, cfg, st[idx], flags[idx], ef[idx],
+                                    work)
     return (torch.complex(st[:, 0], st[:, 1]),
             torch.complex(st[:, 2], st[:, 3]), flags)
 
 
-def _step(tb: _Tables, cfg: HCConfig, st, fl, ef):
+def _step(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
     """One HC step on active paths: st (A, 4, 30) = x re/im, xl re/im."""
     t = fl[:, _F_T]
     fl = fl.clone()
@@ -589,12 +625,12 @@ def _step(tb: _Tables, cfg: HCConfig, st, fl, ef):
         if bool(prune.any()):
             st = st.clone()
             go = (~prune).nonzero()[:, 0]
-            st[go], fl[go] = _advance(tb, cfg, st[go], fl[go], ef[go])
+            st[go], fl[go] = _advance(tb, cfg, st[go], fl[go], ef[go], work)
             return st, fl
-    return _advance(tb, cfg, st, fl, ef)
+    return _advance(tb, cfg, st, fl, ef, work)
 
 
-def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef):
+def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
     """RK4 predictor + Newton corrector + step-size policy."""
     t, dt, succ = fl[:, _F_T], fl[:, _F_DT], fl[:, _F_SC]
     dtc = torch.where(fl[:, _F_EZ] > 0.5,
@@ -632,7 +668,11 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef):
     ok = torch.zeros(A, dtype=torch.bool, device=t.device)
     inf = torch.zeros_like(ok)
     live = torch.arange(A, device=t.device)
+    if work is not None:
+        work["steps"] = work.get("steps", 0) + A
     for _ in range(cfg.max_correction_steps):
+        if work is not None:
+            work["newton"] = work.get("newton", 0) + live.numel()
         cw = cur[live]
         Pl = (P[0][live], P[1][live])
         dr, di = solve_plain(
@@ -693,16 +733,17 @@ def make_track_fn(problem: TrifocalProblem, cfg: HCConfig):
 
 def make_plain_track_fn(problem: TrifocalProblem, cfg: HCConfig):
     """The same tracker running ``track_plain`` on any device: the
-    kernel's reference on the card."""
+    kernel's reference on the card.  Its ``track`` takes ``work``, a dict
+    in which ``track_plain`` counts the path-steps and corrector
+    iterations."""
     return _make_tracker(problem, cfg, plain=True)
 
 
-def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
-    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
-        _kernels,
-    )
-
-    c = FusedConstants.build(problem)
+def device_constants(c: FusedConstants, plain: bool = False):
+    """``on(device) -> (perm, inverse perm, aux)``, built once per device:
+    aux is the kernel plan on a CUDA device (unless ``plain``), else the
+    ``_Tables`` of ``track_plain``.  The inverse permutation is also
+    ``pos_of_var``, each variable's position."""
     cache: dict = {}
 
     def on(device):
@@ -718,7 +759,19 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
             )
         return cache[key]
 
-    def track(x0: torch.Tensor, target_params: torch.Tensor) -> TrackResult:
+    return on
+
+
+def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+        _kernels,
+    )
+
+    c = FusedConstants.build(problem, solver=cfg.solver)
+    on = device_constants(c, plain)
+
+    def track(x0: torch.Tensor, target_params: torch.Tensor,
+              work: Optional[dict] = None) -> TrackResult:
         if x0.device != target_params.device:
             raise ValueError("x0 and target_params must share a device")
         perm, inv, aux = on(x0.device)
@@ -728,7 +781,10 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
         if isinstance(aux, _Tables):
             if x.device.type not in ("cpu", "cuda"):
                 raise ValueError(f"unsupported device {x.device}")
-            x, _, fl = track_plain(c, cfg, x, x, fl, efg, tables=aux)
+            x, _, fl = track_plain(c, cfg, x, x, fl, efg, tables=aux,
+                                   work=work)
+        elif work is not None:
+            raise ValueError("work is counted by track_plain only")
         else:
             _kernels.hc_track(x, x.clone(), fl, efg, aux, cfg.max_steps + 1,
                               cfg)

@@ -1,12 +1,18 @@
 """Configuration for the port: the reference's dataclasses plus two checks.
 
-The dataclasses are the JAX package's own (``utils/config.py`` there imports
-no jax).  The port implements only the shipped configuration, so
-``check_shipped`` rejects every other value of the knobs that change what
-the tracker computes.  ``problem_config`` reads the table dimensions a
-data root declares in ``problem.json`` (written by
-``tools/make_synth_data.py``), since generated tables need not have the
-reference's term counts.
+``ProblemConfig``, ``HCConfig``, ``RansacConfig`` and ``EngineConfig`` have
+the JAX package's fields and defaults (its ``utils/config.py``), without
+the environment overrides its TPU measurement campaigns read.  One default
+differs: ``EngineConfig.data_root`` is this repository's generated data
+root ``data/synth_trifocal``, since the reference's data tree is not part
+of the repository.  The field comments say what each knob does; the JAX
+package's module holds the history behind each default.
+
+The port implements the configurations ``check_shipped`` accepts and
+rejects every other value of the knobs that change what the tracker
+computes.  ``problem_config`` reads the table dimensions a data root
+declares in ``problem.json`` (written by ``tools/make_synth_data.py``),
+since generated tables need not have the reference's term counts.
 """
 
 from __future__ import annotations
@@ -14,40 +20,130 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from typing import Optional
 
-from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils.config import (  # noqa: F401
-    EngineConfig,
-    HCConfig,
-    ProblemConfig,
-    RansacConfig,
-    problem_dir,
-    ransac_data_dir,
-)
+DEFAULT_DATA_ROOT = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "data", "synth_trifocal")
 
-# Knob -> the one value the port implements (the reference's defaults).
+
+@dataclasses.dataclass(frozen=True)
+class ProblemConfig:
+    """Static problem dimensions."""
+
+    name: str = "trifocal_2op1p_30x30"
+    num_vars: int = 30
+    num_params: int = 33
+    num_tracks: int = 312
+    hx_max_terms: int = 8
+    hx_max_parts: int = 5
+    ht_max_terms: int = 16
+    ht_max_parts: int = 6
+    max_order_of_t: int = 2
+    num_coeffs_from_params: int = 37  # used by the P2C ablation variant
+
+
+@dataclasses.dataclass(frozen=True)
+class HCConfig:
+    """Path-tracker hyper-parameters."""
+
+    max_steps: int = 80                 # HC step budget (the tracker runs +1)
+    max_correction_steps: int = 3       # Newton iterations per step
+    steps_to_increase_delta_t: int = 4  # successes before dt doubles
+    init_delta_t: float = 0.01
+    end_zone_factor: float = 0.0500001  # end-zone radius around t = 1
+    t_converged_eps: float = 1e-7       # converged when 1 - t <= eps
+    corrector_tol_sq: float = 1e-6      # ||dx||^2 < tol ||x||^2: success
+    infinity_norm_sq: float = 1e14      # ||x||^2 above: diverged
+    truncate_paths: bool = True         # TrunPaths depth-sign pruning
+    # Track in segments of segment_steps steps and pack the surviving
+    # paths to the front between segments.  Scheduling only: flags, step
+    # counts and solutions are those of one call over the whole budget.
+    compact_survivors: bool = True
+    segment_steps: int = 8
+    rk_jacobian_reuse: bool = False     # frozen-Jacobian RK stages
+    predictor: str = "rk4"              # "rk4" | "rk3" | "rk2"
+    corrector_jacobian_reuse: int = 0   # modified-Newton iterations (0: off)
+    predictor_handoff: bool = False     # corrector -> predictor handoff
+    eval_precision: str = "split3k"     # the TPU's bf16-split matmul mode
+    pair_coef_basis: str = "efg"        # "efg" | "abc"
+    eval_structure: str = "classic"     # "classic" | "gathered" | "merged"
+    backend: str = "fused"              # "fused" | "xla"
+    # The 30x30 solve: "reduced" = the condensed group elimination
+    # (ops/reduce.py), "schedule" = the 30-step static schedule
+    # (ops/schedule.py); same pivots, different programs.
+    solver: str = "reduced"
+    tile: int = 128                     # the TPU kernel's paths per tile
+
+
+@dataclasses.dataclass(frozen=True)
+class RansacConfig:
+    """RANSAC loop settings."""
+
+    num_iterations: int = 100            # hypotheses per round
+    imag_part_tol: float = 1e-5          # pose components' imaginary gate
+    rot_residual_tol: float = 1e-1
+    transl_residual_tol: float = 1e-1
+    reproj_inlier_thresh_px: float = 2.0
+    pass_inlier_support_ratio: float = 0.90
+    # TrunRANSAC: track hypotheses in chunks of abort_chunk and stop at the
+    # first chunk that finds a pose with pass_inlier_support_ratio support.
+    abort_by_good_sol: bool = False
+    abort_chunk: int = 12
+    stream_abort_chunk: int = 10         # the same, in the stream pipeline
+    feed_random_seed: bool = False
+    test_ransac_times: int = 1
+    dataset: str = "Synthetic"
+    zero_imag_part_tol: float = 1e-4     # real-solution count
+    duplicate_sol_tol: float = 1e-4      # unique-solution dedup
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    problem: ProblemConfig = ProblemConfig()
+    hc: HCConfig = HCConfig()
+    ransac: RansacConfig = RansacConfig()
+    data_root: str = DEFAULT_DATA_ROOT
+    output_dir: str = "Output_Write_Files"
+    num_devices: Optional[int] = None  # None = all visible devices
+    num_cpu_cores: Optional[int] = None
+
+
+def problem_dir(cfg: EngineConfig) -> str:
+    return os.path.join(cfg.data_root, "problems", cfg.problem.name)
+
+
+def ransac_data_dir(cfg: EngineConfig) -> str:
+    return os.path.join(
+        cfg.data_root, "RANSAC_Data", cfg.problem.name, cfg.ransac.dataset
+    )
+
+
+# Knob -> the values the port implements (the first is the default).
 _SHIPPED_HC = {
-    "solver": "reduced",
-    "pair_coef_basis": "efg",
-    "predictor": "rk4",
-    "eval_structure": "classic",
-    "rk_jacobian_reuse": False,
-    "corrector_jacobian_reuse": 0,
-    "predictor_handoff": False,
-    "truncate_paths": True,
+    "solver": ("reduced", "schedule"),
+    "pair_coef_basis": ("efg",),
+    "predictor": ("rk4",),
+    "eval_structure": ("classic",),
+    "rk_jacobian_reuse": (False,),
+    "corrector_jacobian_reuse": (0,),
+    "predictor_handoff": (False,),
+    "truncate_paths": (True,),
 }
-_SHIPPED_RANSAC = {"abort_by_good_sol": False}
+_SHIPPED_RANSAC = {"abort_by_good_sol": (False, True)}
 
 
 def check_shipped(cfg: EngineConfig) -> None:
-    """Raise ValueError unless every semantic knob has its shipped value."""
+    """Raise ValueError unless every semantic knob has a value the port
+    implements."""
     for section, shipped in (("hc", _SHIPPED_HC), ("ransac", _SHIPPED_RANSAC)):
         sub = getattr(cfg, section)
-        for name, want in shipped.items():
+        for name, allowed in shipped.items():
             got = getattr(sub, name)
-            if got != want:
+            if got not in allowed:
                 raise ValueError(
                     f"{section}.{name}={got!r} is not supported by the torch "
-                    f"port (only the shipped value {want!r} is)"
+                    f"port (only {', '.join(map(repr, allowed))})"
                 )
 
 
