@@ -5,8 +5,9 @@
 
 Phases (each prints its lines; any failure raises and exits nonzero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the kernel build (csrc/hc_track.cu with nvcc), its seconds and
-     ptxas's resource lines;
+  2. the kernel builds (csrc/hc_track.cu with nvcc, the default and each
+     step variant of phase 8, all at once), their seconds and ptxas's
+     resource lines;
   3. the kernel against its plain PyTorch twin (ops/fused.track_plain) on
      the card, condensed solve ("reduced"): 1 hypothesis x all paths;
   4. the main path: one RANSAC round (view 0, seed 0, H=100 hypotheses)
@@ -23,12 +24,20 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      programs, and the engine round without compaction (one launch)
      beside the main path's;
   7. the TrunRANSAC abort round (abort_chunk=12, H=100): the chunks it ran,
-     the time to the pose and the pose against ground truth.
+     the time to the pose and the pose against ground truth;
+  8. the step variants (predictor rk2 and rk3, corrector_jacobian_reuse
+     1 and 2, predictor_handoff, rk_jacobian_reuse), each its own build of
+     the kernel: kernel against plain on the H=10 round's paths with the
+     plain run's full solves and replays and the bound from them, an H=100
+     engine round, the segmented tracker alone on the H=100 inputs against
+     track_plain over the same segments, and an abort round under
+     corrector_jacobian_reuse=2.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
-the round's 30,700 paths), and as the last line {"ok": true, "device":
-{...}}.  Needs a CUDA card; exits nonzero without.
+the round's 30,700 paths; and one per variant, with its segmented tracker's
+ms, the plain run over the same segments and plain_paths), and as the last
+line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
 import dataclasses
@@ -55,6 +64,16 @@ REPLACES = {
     "schedule": "trifocal_pose_estimation_using_improved_gpuhc_tpu/ops/"
                 "fused.py:873",
 }
+# The step variants of phase 8 and the branches of the JAX kernel they port.
+VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
+            "cjr1": dict(corrector_jacobian_reuse=1),
+            "cjr2": dict(corrector_jacobian_reuse=2),
+            "cph": dict(predictor_handoff=True),
+            "rkj": dict(rk_jacobian_reuse=True)}
+_JAX_FUSED = "trifocal_pose_estimation_using_improved_gpuhc_tpu/ops/fused.py"
+REPLACES_VARIANT = {"rk2": f"{_JAX_FUSED}:1743", "rk3": f"{_JAX_FUSED}:1747",
+                    "cjr1": f"{_JAX_FUSED}:1784", "cjr2": f"{_JAX_FUSED}:1784",
+                    "cph": f"{_JAX_FUSED}:1703", "rkj": f"{_JAX_FUSED}:1699"}
 
 
 def flips(a, b):
@@ -155,19 +174,38 @@ def solve_flops(c):
     return flops
 
 
-def tracker_bound(c, work, n_paths):
+def replay_flops(c):
+    """FP32 operations of one replay of a kept elimination on a new rhs:
+    the rhs-only assembly (22 per rhs term), per step the update of each
+    other unused candidate's rhs (8), and the back-substitution of
+    ``solve_flops``."""
+    _, rhs_terms = c.term_lists()
+    flops = 22 * sum(map(len, rhs_terms))
+    for _, _, rows, pattern in fill_steps(c):
+        flops += 8 * (len(rows) - 1) + 8 * (len(pattern) - 1) + 2 + 11
+    return flops
+
+
+# Per path-step outside the solves, by predictor order: the fills of P and
+# dP/dt (20 per pair each, one per distinct t) and of P for the corrector
+# (10), and the stage points and the RK combination.
+STEP_FLOPS = {4: (3 * 20 + 10, 740), 3: (3 * 20 + 10, 740),
+              2: (2 * 20 + 10, 260)}
+
+
+def tracker_bound(c, work, n_paths, order=4):
     """(bound_ms, bound_by) of one tracker call over n_paths: the larger of
-    the FP32 operations its paths really did (work: the path-steps and
-    corrector iterations counted by track_plain, which the kernel matches
-    bit for bit) over 67 TFLOP/s and its bytes (state, flags and
-    coefficients read once, state and flags written once, the plan read
-    once) over 3.35 TB/s."""
-    per_solve = solve_flops(c)
-    # A step: 4 RK stages, 3 fills of P and dP/dt and 1 of P (10 per pair
-    # each), the RK combination and stage points (740); a corrector
-    # iteration: the update and two norms (240).
-    flops = (work["steps"] * (4 * per_solve + 70 * c.q + 740)
-             + work["newton"] * (per_solve + 240))
+    the FP32 operations its paths really did (work: the path-steps,
+    corrector iterations, full solves and replays counted by track_plain,
+    which the kernel matches bit for bit) over 67 TFLOP/s and its bytes
+    (state, flags and coefficients read once, state and flags written
+    once, the plan read once) over 3.35 TB/s."""
+    per_pair, per_step = STEP_FLOPS[order]
+    # A corrector iteration beyond its solve: the update and two norms.
+    flops = (work["solves"] * solve_flops(c)
+             + work.get("replays", 0) * replay_flops(c)
+             + work["steps"] * (per_pair * c.q + per_step)
+             + work["newton"] * 240)
     nbytes = n_paths * (4 * 30 * 8 + 2 * 8 * 4 + 3 * c.q * 8) \
         + 4 * c.kernel_plan().size
     t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -203,21 +241,31 @@ def main() -> int:
     print(f"torch: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
 
-    # 2. The kernel build.
-    t0 = time.perf_counter()
-    _kernels.load("hc_track")
-    print(f"build: hc_track.cu in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_kernels.build_seconds.get('hc_track', 0.0):.2f} s)",
-          flush=True)
-    for line in _kernels.build_logs.get("hc_track", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"ptxas: {line.strip()}")
-
+    # 2. The kernel builds: the default and every step variant of phase 8,
+    # one nvcc each, all started together.
     cfg = resolve_data_root(
         EngineConfig(data_root=os.path.join(ROOT, "data", "synth_trifocal")))
+    hc = cfg.hc
+    variants = {name: dataclasses.replace(hc, **knobs)
+                for name, knobs in VARIANTS.items()}
+    t0 = time.perf_counter()
+    _kernels.build_hc_track([hc, *variants.values()])
+    print(f"build: {len(_kernels.build_seconds)} builds of hc_track.cu in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in
+                      _kernels.build_seconds.items()) + ")", flush=True)
+    for label, log in _kernels.build_logs.items():
+        fn = "?"
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = ("solve_replay" if "solve_replay" in line
+                      else "hc_track_kernel")
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas: {label} {fn}: {line.strip()}")
+
     engine = eng.TrifocalPoseEngine(cfg)
     assert engine.device == dev, engine.device
-    problem, hc = engine.problem, cfg.hc
+    problem = engine.problem
     view = engine.load_view(VIEW)
     T = problem.num_tracks
     n = H_ROUND * T
@@ -310,7 +358,7 @@ def main() -> int:
     assert abs(rr.best_support31 - rp_round.best_support31) <= sup_tol
 
     x0, tgt = inputs(H_ROUND)
-    rk, rp, ms, plain_ms, work = alone(kernel_track, plain_track, x0, tgt, 2)
+    rk, rp, ms, plain_ms, work = alone(kernel_track, plain_track, x0, tgt, 1)
     abs_err, rel = x_errors(rk, rp)
     nf = flips(rk, rp)
     bound_ms, bound_by = tracker_bound(kernel_track.constants, work, n)
@@ -408,11 +456,86 @@ def main() -> int:
     pose_line(ra)
     assert ra.chunks_run < n_chunks, ra.chunks_run
 
+    # 8. The step variants, each a build of its own: kernel against plain
+    # on the H=10 round's paths, the H=100 engine round, and the segmented
+    # tracker alone on the round's inputs (kernel, then track_plain over
+    # the same segments, which counts the work).
+    def work_line(work):
+        return (f"{work['steps']} path-steps, {work['newton']} corrector "
+                f"iterations, {work['solves']} full solves, "
+                f"{work.get('replays', 0)} replays")
+
+    x10, tgt10 = inputs(10)
+    m10 = x10.shape[0]
+    for name, hc_v in variants.items():
+        kv = fused.make_track_fn(problem, hc_v)
+        pv = fused.make_plain_track_fn(problem, hc_v)
+        c_v = kv.constants
+        order = _kernels.hc_track_variant(hc_v)[0]
+        rk10, rp10, ms10, plain10, work10 = alone(kv, pv, x10, tgt10, 1)
+        nf10 = flips(rk10, rp10)
+        abs10, rel10 = x_errors(rk10, rp10)
+        b10, by10 = tracker_bound(c_v, work10, m10, order)
+        print(f"{name} ({_kernels.hc_track_label(hc_v)}, {c_v.solver}) "
+              f"kernel vs plain on {m10} paths: flag flips {nf10}, converged "
+              f"{int(rk10.converged.sum())}/{int(rp10.converged.sum())}, "
+              f"bit-identical paths {identical(rk10, rp10)}/{m10}, x max abs "
+              f"err {abs10:.3e}, rel {rel10:.3e}; work {work_line(work10)}; "
+              f"kernel alone {ms10:.3f} ms (median of 3), plain {plain10:.3f} "
+              f"ms, bound {b10:.3f} ms ({by10})", flush=True)
+        assert nf10 <= max(1, int(FLIP_FRAC * m10)), nf10
+        assert rel10 < REL_TOL, rel10
+
+        # RKJ and CJR=1 converge worse: found_pose is printed, not asserted.
+        cfg_v = dataclasses.replace(cfg, hc=hc_v)
+        engine_v = eng.TrifocalPoseEngine(cfg_v)
+        engine_v.run_round(view, SEED, H_ROUND)  # warm-up
+        rr_v, launches_v = counted_round(engine_v)
+        round_line(f"{name} round H={H_ROUND} (segmented, compaction)", rr_v,
+                   launches_v)
+        assert launches_v > 0, f"the {name} round did not launch the kernel"
+
+        seg_v = segmented.make_segmented_track_fn(problem, hc_v)
+        runs = [timed(lambda: seg_v(x0, tgt).track) for _ in range(3)]
+        seg_ms = sorted(t for _, t in runs)[1]
+        work = {}
+        plain_seg = segmented.make_segmented_track_fn(problem, hc_v, plain=True)
+        rp_v, plain_ms = timed(lambda: plain_seg(x0, tgt, work=work).track)
+        rs = runs[0][0]
+        nf_v = flips(rs, rp_v)
+        abs_v, rel_v = x_errors(rs, rp_v)
+        bound_v, by_v = tracker_bound(c_v, work, n, order)
+        print(f"{name} segmented tracker on {n} paths: {seg_ms:.3f} ms "
+              f"(median of 3); plain over the same segments {plain_ms:.3f} "
+              f"ms; flag flips {nf_v}, bit-identical paths "
+              f"{identical(rs, rp_v)}/{n}, x max abs err {abs_v:.3e}; work "
+              f"{work_line(work)}; bound {bound_v:.3f} ms ({by_v})",
+              flush=True)
+        assert nf_v <= max(3, int(FLIP_FRAC * n)), nf_v
+        assert rel_v < REL_TOL, rel_v
+        kernels.append(dict(program=c_v.solver, variant=name,
+                            replaces=REPLACES_VARIANT[name],
+                            launches=launches_v, max_abs_err=abs_v, ms=seg_ms,
+                            plain_ms=plain_ms, plain_paths=n, bound_ms=bound_v,
+                            bound_by=by_v))
+
+        if name == "cjr2":
+            engine_va = eng.TrifocalPoseEngine(dataclasses.replace(
+                cfg_a, hc=hc_v))
+            engine_va.run_round(view, SEED, H_ROUND)  # warm-up
+            rva, launches_va = counted_round(engine_va)
+            print(f"{name} abort round H={H_ROUND}, chunk {ABORT_CHUNK}: "
+                  f"chunks run {rva.chunks_run} of {n_chunks}, found_pose "
+                  f"{rva.found_pose}, best support {rva.best_support21}/"
+                  f"{rva.best_support31}, launches {launches_va}, track_ms "
+                  f"{rva.track_ms:.3f}, total_ms {rva.total_ms:.3f}",
+                  flush=True)
+            assert launches_va > 0, "the cjr2 abort round did not launch"
+
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [dict(
-        name="hc_track", route="cuda", source=SOURCE,
-        replaces=REPLACES[k["program"]], library_ms=None, **k)
-        for k in kernels]}))
+        name="hc_track", route="cuda", source=SOURCE, library_ms=None,
+        **{"replaces": REPLACES.get(k["program"]), **k}) for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,7 @@ solve leaves in a step's pivot row, in a column still to be eliminated or
 the rhs, lies in that step's pattern, for both solve programs.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -17,8 +18,11 @@ import torch
 
 import chip_smoke
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
-from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused
-from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import config
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused, ransac
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+    config,
+    data_io,
+)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "data", "synth_trifocal")
@@ -68,3 +72,63 @@ def test_solve_flops_of_the_committed_problem(problem, solver, flops):
     """The per-solve counts that PERF.md's bounds rest on."""
     c = fused.FusedConstants.build(problem, solver=solver)
     assert chip_smoke.solve_flops(c) == flops
+
+
+@pytest.mark.parametrize("solver,flops", [("reduced", 14070),
+                                          ("schedule", 14038)])
+def test_replay_flops_of_the_committed_problem(problem, solver, flops):
+    """A replay's count: the rhs-only assembly (22 per rhs term), 8 per
+    other unused candidate per step on the rhs column, and the solve's
+    back-substitution."""
+    c = fused.FusedConstants.build(problem, solver=solver)
+    _, rhs_terms = c.term_lists()
+    backsub = sum(8 * (len(p) - 1) + 13 for *_, p in chip_smoke.fill_steps(c))
+    updates = sum(8 * (len(r) - 1) for _, _, r, _ in chip_smoke.fill_steps(c))
+    assert chip_smoke.replay_flops(c) == 22 * sum(map(len, rhs_terms)) \
+        + updates + backsub == flops
+
+
+# (knobs, RK stages per step, stages that replay)
+_WORK = {
+    "rk4": ({}, 4), "rk3": (dict(predictor="rk3"), 3),
+    "rk2": (dict(predictor="rk2"), 2),
+    "cjr1": (dict(corrector_jacobian_reuse=1), 4),
+    "cjr2": (dict(corrector_jacobian_reuse=2), 4),
+    "cph": (dict(predictor_handoff=True), 4),
+    "rkj": (dict(rk_jacobian_reuse=True), 4),
+}
+
+
+@pytest.mark.parametrize("variant", list(_WORK))
+def test_track_plain_counts_solves_and_replays(problem, variant):
+    """The work the bound is computed from: every RK stage and corrector
+    iteration is one full solve or one replay; RKJ replays stages 2-4,
+    CPH at most stage 1, CJR only corrector iterations."""
+    knobs, stages = _WORK[variant]
+    hc = dataclasses.replace(config.HCConfig(), **knobs)
+    c = fused.FusedConstants.build(problem, solver=fused.solver_of(hc))
+    x = torch.as_tensor(problem.start_sols[:16][:, c.perm])
+    view = data_io.load_ransac_view(config.ransac_data_dir(
+        config.EngineConfig(data_root=DATA)), 0)
+    s = ransac.sample_edgel_triplets(0, view.edge_locations.shape[0], 1)
+    tgt = torch.as_tensor(ransac.build_target_params(
+        view.edge_locations, view.edge_tangents, s)).repeat(16, 1)
+    work = {}
+    fused.track_plain(c, hc, x, x, fused.init_flags(hc, 16),
+                      fused.build_pair_coefs(problem, tgt), niter=6,
+                      work=work)
+    steps, newton = work["steps"], work["newton"]
+    replays = work.get("replays", 0)
+    assert steps == 16 * 6
+    assert work["solves"] + replays == stages * steps + newton
+    if variant == "rkj":
+        assert replays == 3 * steps
+    elif variant == "cph":
+        assert 0 < replays < steps
+    elif variant == "cjr1":
+        # Every iteration after a path's first replays.
+        assert replays == newton - steps > 0
+    elif variant == "cjr2":
+        assert replays < newton - steps
+    else:
+        assert replays == 0

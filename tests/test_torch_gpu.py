@@ -8,8 +8,11 @@ jax, so it runs on a GPU host that has none:
 Workload: view 0, seed 0, 2 hypotheses (2 x the problem's roots paths).
 The kernel is built without FMA contraction and track_plain writes out
 every product and sum in the kernel's order, so the two agree bit for bit:
-x, flags and step counts must be equal, for both solve programs and for
-segmented tracking against one launch.
+x, flags and step counts must be equal, for both solve programs, for every
+step variant's build, and for segmented tracking against one launch
+(under the predictor handoff, which restarts at every launch, against
+track_plain over the same segments).  The kernel's solve and replay are
+also held alone (hc_solve_replay) to their plain twins.
 """
 
 import dataclasses
@@ -154,3 +157,103 @@ def test_cuda_wrapper_checks_inputs(setup):
     with pytest.raises(ValueError, match="float32"):
         _kernels.hc_track(x0.clone(), x0.clone(), fl.double(), efg, plan, 2,
                           cfg.hc)
+
+
+_VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
+             "cjr1": dict(corrector_jacobian_reuse=1),
+             "cjr2": dict(corrector_jacobian_reuse=2),
+             "cph": dict(predictor_handoff=True),
+             "rkj": dict(rk_jacobian_reuse=True),
+             "cjr2-cph": dict(corrector_jacobian_reuse=2,
+                              predictor_handoff=True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_VARIANTS))
+def test_cuda_variant_matches_track_plain(setup, name):
+    """Each step variant's build, bit for bit, on 1 x the roots."""
+    cfg, port, x0, tgt = setup
+    T = port.num_tracks
+    hc = dataclasses.replace(cfg.hc, **_VARIANTS[name])
+    before = _kernels.hc_track.launches
+    k = fused.make_track_fn(port, hc)(x0[:T], tgt[:T])
+    assert _kernels.hc_track.launches == before + 1
+    p = fused.make_plain_track_fn(port, hc)(x0[:T], tgt[:T])
+    torch.cuda.synchronize()
+    _assert_same(k, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_VARIANTS))
+def test_cuda_variant_segmented(setup, name):
+    """Segmented equals one launch; under the handoff, which restarts at
+    every launch, it equals track_plain called once per segment."""
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, **_VARIANTS[name])
+    seg = segmented.make_segmented_track_fn(port, hc)(x0, tgt).track
+    if hc.predictor_handoff:
+        ref = segmented.make_segmented_track_fn(port, hc, plain=True)(
+            x0, tgt).track
+    else:
+        ref = fused.make_track_fn(port, hc)(x0, tgt)
+    torch.cuda.synchronize()
+    _assert_same(seg, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["reduced", "schedule"])
+def test_cuda_replay_is_the_solve_on_its_rhs(setup, solver):
+    """The kernel's solve and replay alone (hc_solve_replay) on seeded
+    systems with the Jacobian's sparsity and a magnitude spread: the
+    replay on the system's own rhs gives the solve's x bit for bit, and
+    both, and the replay on a fresh rhs, equal their plain twins."""
+    import numpy as np
+
+    _, port, x0, _ = setup
+    dev = x0.device
+    c = fused.FusedConstants.build(port, solver=solver)
+    f = port.factored
+    pattern = f.hx_scatter.reshape(30, 30) != f.hx_C.shape[1]
+    rng = np.random.default_rng(29)
+    A = 512
+    shape = (A, 30, 30)
+    a = ((rng.standard_normal(shape) + 1j * rng.standard_normal(shape))
+         * pattern * 10.0 ** rng.uniform(-2, 3, (A, 1, 30)))
+    b, b2 = rng.standard_normal((2, A, 30)) + 1j * rng.standard_normal(
+        (2, A, 30))
+    m = np.zeros((A, 30, fused.WIDTH), np.complex64)
+    m[:, :, :30] = a[:, c.row_order][:, :, c.perm]
+    m[:, :, 30] = b[:, c.row_order]
+    m = torch.as_tensor(m, device=dev)
+    fresh = torch.as_tensor(
+        np.ascontiguousarray(b2[:, c.row_order], dtype=np.complex64),
+        device=dev)
+    plan = torch.as_tensor(c.kernel_plan(), device=dev)
+    xs, xr = _kernels.hc_solve_replay(m, m[:, :, 30].contiguous(), plan)
+    xs2, xr2 = _kernels.hc_solve_replay(m, fresh, plan)
+    tb = fused._Tables(c, dev)
+    kept = fused.factor_plain(tb, (m.real.contiguous(), m.imag.contiguous()))
+    ps = torch.complex(*fused.backsub_plain(tb, kept.mr, kept.mi, kept.piv))
+    pr = torch.complex(*fused.resolve_plain(
+        tb, kept, (fresh.real.contiguous(), fresh.imag.contiguous())))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(xs).all())
+    for u, v in ((xr, xs), (xs, ps), (xs2, ps), (xr2, pr)):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+def test_cuda_rkj_refuses_a_condensed_plan(setup):
+    """Under rk_jacobian_reuse the wrapper raises on the condensed plan
+    rather than launch it."""
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, rk_jacobian_reuse=True)
+    c = fused.FusedConstants.build(port)
+    plan = torch.as_tensor(c.kernel_plan(), device=x0.device)
+    x = x0[:, torch.as_tensor(c.perm, device=x0.device)].contiguous()
+    before = _kernels.hc_track.launches
+    with pytest.raises(ValueError, match="schedule"):
+        _kernels.hc_track(x, x.clone(), fused.init_flags(hc, x.shape[0],
+                                                        x.device),
+                          fused.build_pair_coefs(port, tgt), plan, 2, hc)
+    assert _kernels.hc_track.launches == before

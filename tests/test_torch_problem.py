@@ -108,14 +108,23 @@ def test_kernel_plan_header(constants):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("solver", "dense"), ("pair_coef_basis", "abc"), ("predictor", "rk3"),
-    ("eval_structure", "merged"), ("rk_jacobian_reuse", True),
-    ("corrector_jacobian_reuse", 2), ("predictor_handoff", True),
+    ("solver", "dense"), ("pair_coef_basis", "abc"), ("predictor", "rk5"),
+    ("eval_structure", "merged"), ("eval_structure", "gathered"),
+    ("backend", "xla"), ("backend", "p2c"),
+    ("eval_precision", "split3_rk2"), ("corrector_jacobian_reuse", 3),
     ("truncate_paths", False)])
 def test_non_shipped_config_rejected(cfg, knob, value):
     bad = dataclasses.replace(cfg, hc=dataclasses.replace(cfg.hc,
                                                           **{knob: value}))
     with pytest.raises(ValueError, match=knob):
+        config.check_shipped(bad)
+
+
+def test_handoff_with_frozen_rk_stages_rejected(cfg):
+    """The JAX kernel refuses predictor_handoff with rk_jacobian_reuse."""
+    bad = dataclasses.replace(cfg, hc=dataclasses.replace(
+        cfg.hc, predictor_handoff=True, rk_jacobian_reuse=True))
+    with pytest.raises(ValueError, match="predictor_handoff"):
         config.check_shipped(bad)
 
 
@@ -129,3 +138,18 @@ def test_shipped_config_accepted(cfg):
         cfg.ransac, abort_by_good_sol=1.5))
     with pytest.raises(ValueError, match="abort_by_good_sol"):
         config.check_shipped(bad)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(predictor="rk2"), dict(predictor="rk3"),
+    dict(corrector_jacobian_reuse=1), dict(corrector_jacobian_reuse=2),
+    dict(predictor_handoff=True), dict(rk_jacobian_reuse=True),
+    dict(corrector_jacobian_reuse=2, predictor_handoff=True),
+    dict(corrector_jacobian_reuse=1, predictor="rk3"),
+    dict(eval_precision="split3"), dict(eval_precision="highest")],
+    ids=lambda k: ",".join(f"{a}={v}" for a, v in k.items()))
+def test_step_variants_accepted(cfg, knobs):
+    """The step variants, alone and in the combinations the JAX kernel
+    takes, and the evaluation precisions that compute the FP32 function."""
+    config.check_shipped(dataclasses.replace(
+        cfg, hc=dataclasses.replace(cfg.hc, **knobs)))

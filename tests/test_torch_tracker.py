@@ -54,6 +54,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import (
 )
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import fused as jfused
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import data_io
+from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     _kernels,
@@ -100,6 +101,21 @@ def setup():
     return cfg, port, jp, c, run, tgt_all
 
 
+def _variant_setup(setup, tile, **knobs):
+    """setup's tuple for a step variant of the HC config: its constants
+    (the schedule program under rk_jacobian_reuse) and the JAX kernel built
+    with that config at ``tile`` paths per tile."""
+    cfg, port, jp, _, _, tgt_all = setup
+    hc = dataclasses.replace(cfg.hc, **knobs)
+    solver = fused.solver_of(hc)
+    c = fused.FusedConstants.build(port, solver=solver)
+    jc = jfused.FusedConstants.build(jp, solver=solver)
+    assert np.array_equal(c.perm, np.asarray(jc.perm))
+    run = jax.jit(jfused.build_kernel_caller(jc, jp, hc, tile, _STEPS,
+                                             interpret=True))
+    return dataclasses.replace(cfg, hc=hc), port, jp, c, run, tgt_all
+
+
 def _jax_steps(setup, x, xl, flags, tgt, niter):
     """The JAX kernel on state (x, xl (B, 30) complex in position order,
     flags (B, 8)); returns the same, as numpy."""
@@ -118,9 +134,12 @@ def _jax_steps(setup, x, xl, flags, tgt, niter):
             np.asarray(fl).T)
 
 
-def _compare_window(setup, x, xl, flags, tgt):
+def _compare_window(setup, x, xl, flags, tgt, excuse=None):
     """_STEPS steps from the given state in both; flags identical and x
-    close on the well-conditioned paths."""
+    close on the well-conditioned paths.  ``excuse(i)``, if given, may
+    exempt a flag-stable path i whose flags differ: it must prove that the
+    path's outcome is not determined in float32 (it returns True), else
+    the comparison fails."""
     cfg, port, _, c, _, _ = setup
     hc = cfg.hc
 
@@ -148,6 +167,10 @@ def _compare_window(setup, x, xl, flags, tgt):
         mx, mfl = plain(nudge(x), nudge(tgt))
         stable &= (mfl == gfl).all(axis=1)
         calm &= np.abs(mx - gx).max(axis=1) / scale < 1e-4
+    if excuse is not None:
+        for i in np.flatnonzero(stable & (gfl != rfl).any(axis=1)):
+            assert excuse(int(i)), f"path {i}: flags differ"
+            stable[i] = False
     calm &= stable
     np.testing.assert_array_equal(gfl[stable], rfl[stable])
     assert (np.abs(gx - rx).max(axis=1) / scale)[calm].max() < 1e-3
@@ -325,3 +348,27 @@ def test_reduced_and_schedule_programs_agree(setup, schedule_setup):
     assert int(flr[:, fused._F_NST].max()) == 12
     scale = np.maximum(np.abs(xr).max(axis=1), 1.0)
     assert (np.abs(xr - xs).max(axis=1) / scale).max() < 1e-3
+
+
+def _engine_round_matches_track_plain(cfg, knobs, segmented_plain=None):
+    """A CPU engine round at H = 1 under the variant against a direct
+    track_plain call (or ``segmented_plain(problem, hc, x0, tgt)``): the
+    same flags and step counts on every path."""
+    hc = dataclasses.replace(cfg.hc, max_steps=16, **knobs)
+    cfg = dataclasses.replace(cfg, hc=hc)
+    eng = engine.TrifocalPoseEngine(cfg, device="cpu")
+    view = eng.load_view(0)
+    rr = eng.run_round(view, seed=0, num_hypotheses=1)
+    s = ransac.sample_edgel_triplets(0, view.edge_locations.shape[0], 1)
+    tgt = torch.as_tensor(ransac.build_target_params(
+        view.edge_locations, view.edge_tangents, s)).repeat_interleave(
+            eng.problem.num_tracks, dim=0)
+    x0 = eng._start
+    if segmented_plain is None:
+        ref = fused.make_plain_track_fn(eng.problem, hc)(x0, tgt)
+    else:
+        ref = segmented_plain(eng.problem, hc, x0, tgt)
+    for f in ("converged", "inf_fail", "pruned", "num_steps"):
+        np.testing.assert_array_equal(np.asarray(getattr(rr, f)),
+                                      getattr(ref, f).numpy(), err_msg=f)
+    assert int(ref.num_steps.max()) == hc.max_steps + 1

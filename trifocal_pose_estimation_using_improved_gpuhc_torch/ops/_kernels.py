@@ -2,12 +2,16 @@
 
 Each ``csrc/*.cu`` file is compiled at first use, on the machine with the
 card, into a shared library with a plain C interface under ``build/kernels/``
-at the repository root (named by the source's hash, so an edited source
-rebuilds).  Nothing here runs at import: the CPU tests import this module
-without a compiler or a card.
+at the repository root (named by a hash of the source, the flags and the
+build's -D defines, so an edited source rebuilds).  ``build`` compiles
+several at once, one nvcc each, all started together.  Nothing here runs at
+import: the CPU tests import this module without a compiler or a card.
 
 ``hc_track`` launches ``csrc/hc_track.cu`` on PyTorch's current stream and
-counts its launches in ``hc_track.launches``.
+counts its launches in ``hc_track.launches``.  Its step variants (predictor
+order, and the kept-elimination replays of corrector_jacobian_reuse,
+predictor_handoff and rk_jacobian_reuse) are compile-time choices: one
+library per variant, built when a configuration first needs it.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import Sequence, Tuple
 
 import torch
 
@@ -39,8 +44,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_seconds: dict = {}
-build_logs: dict = {}    # name -> the compiler's messages of this build
+build_seconds: dict = {}  # label -> seconds of this process's build
+build_logs: dict = {}     # label -> the compiler's messages of that build
 
 
 def _nvcc() -> str:
@@ -54,38 +59,99 @@ def _nvcc() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library of csrc/<name>.cu, compiled if not yet built."""
+def _library(name: str, defines: Sequence[str]) -> Tuple[str, str]:
+    src = os.path.join(_CSRC, f"{name}.cu")
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(
+            fh.read() + " ".join(NVCC_FLAGS + list(defines)).encode()
+        ).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build(jobs: Sequence[Tuple[str, str, Sequence[str]]]) -> None:
+    """Compile each (source name, label, -D defines) not yet built, all
+    nvcc processes started together; raises if any fails."""
     with _lock:
-        if name in _libs:
-            return _libs[name]
-        src = os.path.join(_CSRC, f"{name}.cu")
-        with open(src, "rb") as fh:
-            digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
-                                    ).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        if not os.path.exists(so):
+        running = []
+        for name, label, defines in jobs:
+            src, so = _library(name, defines)
+            if os.path.exists(so) or any(r[1] == so for r in running):
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                  capture_output=True, text=True)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, *defines, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            running.append((label, so, tmp, src, proc, time.perf_counter()))
+        failed = []
+        for label, so, tmp, src, proc, t0 in running:
+            out, err = proc.communicate()
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+                failed.append(f"nvcc failed on {src} ({label}):\n{err}")
+                continue
             os.replace(tmp, so)
-            build_seconds[name] = time.perf_counter() - t0
-            build_logs[name] = proc.stderr + proc.stdout
-        lib = ctypes.CDLL(so)
-        _libs[name] = lib
-        return lib
+            build_seconds[label] = time.perf_counter() - t0
+            build_logs[label] = err + out
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
-def _hc_track_lib() -> ctypes.CDLL:
-    lib = load("hc_track")
+def load(name: str, label: str = "", defines: Sequence[str] = ()
+         ) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu built with ``defines``,
+    compiled if not yet built."""
+    _, so = _library(name, defines)
+    if so not in _libs:
+        build([(name, label or name, defines)])
+        with _lock:
+            _libs.setdefault(so, ctypes.CDLL(so))
+    return _libs[so]
+
+
+_ORDERS = {"rk4": 4, "rk3": 3, "rk2": 2}
+
+
+def hc_track_variant(cfg: HCConfig) -> Tuple[int, int, int, int]:
+    """The compile-time variant a configuration runs: (predictor order,
+    corrector replay, predictor handoff, frozen RK stages), each 0/1 but
+    the order; raises ValueError for one the kernel does not build."""
+    if cfg.predictor not in _ORDERS:
+        raise ValueError(f"unknown predictor {cfg.predictor!r}")
+    if cfg.predictor_handoff and cfg.rk_jacobian_reuse:
+        raise ValueError("predictor_handoff and rk_jacobian_reuse cannot be "
+                         "combined")
+    return (_ORDERS[cfg.predictor], int(cfg.corrector_jacobian_reuse > 0),
+            int(bool(cfg.predictor_handoff)), int(bool(cfg.rk_jacobian_reuse)))
+
+
+def hc_track_label(cfg: HCConfig) -> str:
+    """The variant's library label, e.g. "hc_track.rk4" (the default) or
+    "hc_track.rk3-cjr"."""
+    v = hc_track_variant(cfg)
+    return f"hc_track.rk{v[0]}" + "".join(
+        f"-{n}" for n, on in zip(("cjr", "cph", "rkj"), v[1:]) if on)
+
+
+def _hc_track_job(cfg: HCConfig):
+    order, cjr, cph, rkj = hc_track_variant(cfg)
+    return ("hc_track", hc_track_label(cfg),
+            [f"-DHC_ORDER={order}", f"-DHC_CJR={cjr}", f"-DHC_CPH={cph}",
+             f"-DHC_RKJ={rkj}"])
+
+
+def build_hc_track(cfgs: Sequence[HCConfig]) -> None:
+    """Build the variants these configurations run, in parallel."""
+    build([_hc_track_job(c) for c in cfgs])
+
+
+def _hc_track_lib(cfg: HCConfig) -> ctypes.CDLL:
+    lib = load(*_hc_track_job(cfg))
     fn = lib.hc_track_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, p]
-    fn.restype = ctypes.c_int
+    if fn.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, i, i, i,
+                       p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -104,11 +170,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
              efg: torch.Tensor, plan: torch.Tensor, niter: int,
              cfg: HCConfig) -> None:
-    """Run up to ``niter`` HC steps per path in place on CUDA tensors.
+    """Run up to ``niter`` HC steps per path in place on CUDA tensors, in
+    the step variant of ``cfg``.
 
     x, xl (B, 30) complex64 in position order; flags (B, 8) float32; efg
     (B, 3, Q) complex64; plan = FusedConstants.kernel_plan() as int32 on
-    the same card.  Raises on anything else or if the launch fails."""
+    the same card, of the schedule program under rk_jacobian_reuse.
+    Raises on anything else or if the launch fails."""
     B = x.shape[0]
     q = efg.shape[-1]
     if efg.dim() != 3 or not 0 < q <= 64:
@@ -122,7 +190,11 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     devs = {t.device for t in (x, xl, flags, efg, plan)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
-    lib = _hc_track_lib()
+    order, _, cph, rkj = hc_track_variant(cfg)
+    # Header word 3 counts the row-map levels: the schedule program has none.
+    if rkj and int(plan[3]) != 0:
+        raise ValueError("rk_jacobian_reuse runs the schedule program only")
+    lib = _hc_track_lib(cfg)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hc_track_launch(
@@ -130,10 +202,47 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
             plan.data_ptr(), B, int(niter), int(cfg.max_correction_steps),
             int(cfg.steps_to_increase_delta_t), int(bool(cfg.truncate_paths)),
             float(cfg.end_zone_factor), float(cfg.t_converged_eps),
-            float(cfg.corrector_tol_sq), float(cfg.infinity_norm_sq), stream)
+            float(cfg.corrector_tol_sq), float(cfg.infinity_norm_sq),
+            order, int(cfg.corrector_jacobian_reuse), cph, rkj, stream)
+    if err == -1:
+        raise RuntimeError(f"{hc_track_label(cfg)} is not the variant its "
+                           f"library was built as")
     if err != 0:
         raise RuntimeError(f"hc_track launch failed: CUDA error {err}")
     hc_track.launches += 1
 
 
 hc_track.launches = 0
+
+
+def hc_solve_replay(m: torch.Tensor, rhs: torch.Tensor, plan: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's solve and replay alone, for checking them: solve each
+    augmented system m (A, 30, 32) complex64 (rhs in column 30) by the
+    plan's pivot program, then replay that elimination on rhs (A, 30);
+    returns (x_solve, x_replay), each (A, 30) in position order.  The
+    plain twin is fused.solve_plain + fused.resolve_plain."""
+    A = m.shape[0]
+    _check(m, "m", torch.complex64, (A, 30, 32))
+    _check(rhs, "rhs", torch.complex64, (A, 30))
+    _check(plan, "plan", torch.int32, (plan.numel(),))
+    if len({t.device for t in (m, rhs, plan)}) != 1:
+        raise ValueError("tensors on several devices")
+    lib = load(*_hc_track_job(HCConfig()))
+    fn = lib.hc_solve_replay_launch
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, p, ctypes.c_int, p]
+        fn.restype = ctypes.c_int
+    xs, xr = torch.empty_like(rhs), torch.empty_like(rhs)
+    with torch.cuda.device(m.device):
+        stream = torch.cuda.current_stream(m.device).cuda_stream
+        err = fn(m.data_ptr(), rhs.data_ptr(), xs.data_ptr(), xr.data_ptr(),
+                 plan.data_ptr(), A, stream)
+    if err != 0:
+        raise RuntimeError(f"hc_solve_replay launch failed: CUDA error {err}")
+    hc_solve_replay.launches += 1
+    return xs, xr
+
+
+hc_solve_replay.launches = 0

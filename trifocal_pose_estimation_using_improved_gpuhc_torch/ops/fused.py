@@ -39,12 +39,18 @@ winning as in ``torch.argmax``), scales by conj(pivot)/|pivot|^2 with a
 zero pivot's |pivot|^2 replaced by 1, and eliminates the column from the
 other live candidates.  Back-substitution walks the steps in reverse using
 the pivot rows, which no later step modifies.
+
+The step variants of the JAX kernel run here too (``_advance``): predictor
+"rk3" or "rk2", and the three users of a kept elimination, which
+``resolve_plain`` replays on a new right-hand side with the forward pass's
+own update (``corrector_jacobian_reuse``, ``predictor_handoff``,
+``rk_jacobian_reuse``; the last on the schedule program only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,6 +73,7 @@ WIDTH = 32       # augmented row: 30 columns, rhs, pad
 CMAX = 32        # candidate slots per step in the kernel's plan: one lane each
 STEP_INTS = 4 + CMAX
 QMAX = 64        # parameter pairs the kernel holds per path
+FSLOTS = 352     # multipliers a replaying kernel keeps per path (all steps)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +198,13 @@ class FusedConstants:
                     raise ValueError(f"step {s} has {len(cand)} candidates")
                 steps[s, :3] = (st.level, col, len(cand))
                 steps[s, 4:4 + len(cand)] = cand
+        # Slot 3: where the step's multipliers start in the kernel's
+        # per-path multiplier area (one slot per candidate, step order),
+        # which the replaying variants keep.
+        steps[:, 3] = np.cumsum(steps[:, 2]) - steps[:, 2]
+        if steps[:, 2].sum() > FSLOTS:
+            raise ValueError(f"{steps[:, 2].sum()} multiplier slots, the "
+                             f"kernel keeps {FSLOTS}")
         maps = np.full((len(self.maps), 32, 4), -1, np.int32)
         for lv, m in enumerate(self.maps):
             maps[lv, :len(m)] = m
@@ -472,10 +486,11 @@ def _fill(efg, t: torch.Tensor, rk: bool):
     return P, (t2 * er + (a * fr - b * gr), t2 * ei + (a * fi - b * gi))
 
 
-def _assemble(tb: _Tables, x, P, R, want_h: bool):
+def _assemble(tb: _Tables, x, P, R, want_h: bool, rhs_only: bool = False):
     """Augmented systems (re, im), each (A, 30, 32), at position-order x
     (re, im): the Hx nonzeros and the rhs, H (corrector) or -Ht (RK
-    stages); each entry sums its terms in term-list order."""
+    stages); each entry sums its terms in term-list order.  With
+    ``rhs_only`` (a replay's input) just the rhs, (re, im) each (A, 30)."""
     xr, xi = x
     A, n = xr.shape[0], tb.c.n
     er = torch.cat([xr, xr.new_ones((A, 1))], dim=1)   # homogeneous slot
@@ -490,15 +505,17 @@ def _assemble(tb: _Tables, x, P, R, want_h: bool):
             acc_r, acc_i = acc_r + vr[..., k], acc_i + vi[..., k]
         return acc_r, acc_i
 
-    hx = sum_terms(tb.hx_coef, tb.hx_q,
-                   _cmul(er[:, tb.hx_a], ei[:, tb.hx_a],
-                         er[:, tb.hx_b], ei[:, tb.hx_b]),
-                   tb.hx_valid, P)
     x2 = _cmul(er[:, tb.rhs_a], ei[:, tb.rhs_a], er[:, tb.rhs_b],
                ei[:, tb.rhs_b])
     rhs = sum_terms(tb.rhs_coef, tb.rhs_q,
                     _cmul(*x2, er[:, tb.rhs_c], ei[:, tb.rhs_c]),
                     tb.rhs_valid, R)
+    if rhs_only:
+        return tuple(r if want_h else -r for r in rhs)
+    hx = sum_terms(tb.hx_coef, tb.hx_q,
+                   _cmul(er[:, tb.hx_a], ei[:, tb.hx_a],
+                         er[:, tb.hx_b], ei[:, tb.hx_b]),
+                   tb.hx_valid, P)
     out = []
     for h, r in zip(hx, rhs):
         m = xr.new_zeros((A, n, WIDTH))
@@ -514,18 +531,43 @@ def _inv_den(pr, pi):
     return torch.where(den == 0.0, torch.ones_like(den), den)
 
 
-def solve_plain(tb: _Tables, m, return_pivots: bool = False):
-    """Condensed restricted-pivoting solve of the augmented systems
-    m = (re, im), each (A, 30, 32), overwritten; returns x (re, im), each
-    (A, 30) in position order (and the pivot row of every step)."""
+class Factor(NamedTuple):
+    """What a replay needs of one elimination, batch-first: the eliminated
+    systems (their pivot rows are what back-substitution reads), each
+    step's pivot row and, per step and candidate slot, the row, whether
+    the step updated it and the multiplier it used (slots past a step's
+    candidates are unused)."""
+
+    mr: torch.Tensor     # (A, 30, 32)
+    mi: torch.Tensor
+    piv: torch.Tensor    # (A, steps) long
+    rows: torch.Tensor   # (A, steps, CMAX) long
+    live: torch.Tensor   # (A, steps, CMAX) bool
+    fr: torch.Tensor     # (A, steps, CMAX)
+    fi: torch.Tensor
+
+    def index(self, sel) -> "Factor":
+        return Factor(*(a[sel] for a in self))
+
+
+def factor_plain(tb: _Tables, m) -> Factor:
+    """Restricted-pivoting forward elimination of the augmented systems
+    m = (re, im), each (A, 30, 32), in place, by the constants' pivot
+    program; returns what back-substitution and a replay need."""
     mr, mi = m
     A, n = mr.shape[0], tb.c.n
-    ar = torch.arange(A, device=mr.device)
+    dev = mr.device
+    ar = torch.arange(A, device=dev)
     a3 = ar[:, None, None]
-    used = torch.zeros((A, n), dtype=torch.bool, device=mr.device)
+    used = torch.zeros((A, n), dtype=torch.bool, device=dev)
     rmap = tb.map0.expand(A, n)
     level = 0
-    piv = torch.empty((A, tb.c.num_steps), dtype=torch.long, device=mr.device)
+    S = tb.c.num_steps
+    piv = torch.empty((A, S), dtype=torch.long, device=dev)
+    rows_all = torch.zeros((A, S, CMAX), dtype=torch.long, device=dev)
+    live_all = torch.zeros((A, S, CMAX), dtype=torch.bool, device=dev)
+    fr_all = mr.new_zeros((A, S, CMAX))
+    fi_all = mr.new_zeros((A, S, CMAX))
     for lv, steps, cols, cands in tb.stages:
         while level < lv:
             rmap = _next_map(rmap, used, tb.maps[level])
@@ -542,16 +584,28 @@ def solve_plain(tb: _Tables, m, return_pivots: bool = False):
         pr, pi = vr.gather(2, k), vi.gather(2, k)
         den = _inv_den(pr, pi)
         ir, ii = pr / den, -pi / den
-        fr = (vr * ir - vi * ii)[..., None]
-        fi = (vr * ii + vi * ir)[..., None]
-        live = (~was & (rows != p[..., None]))[..., None]
+        fr = vr * ir - vi * ii
+        fi = vr * ii + vi * ir
+        live = ~was & (rows != p[..., None])
+        C = rows.shape[2]
+        rows_all[:, steps, :C], live_all[:, steps, :C] = rows, live
+        fr_all[:, steps, :C], fi_all[:, steps, :C] = fr, fi
+        fr, fi, live = fr[..., None], fi[..., None], live[..., None]
         prr = mr[ar[:, None], p][:, :, None, :]            # (A, S, 1, W)
         pri = mi[ar[:, None], p][:, :, None, :]
         old_r, old_i = mr[a3, rows], mi[a3, rows]          # (A, S, C, W)
         mr[a3, rows] = torch.where(live, old_r - (fr * prr - fi * pri), old_r)
         mi[a3, rows] = torch.where(live, old_i - (fr * pri + fi * prr), old_i)
         used[ar[:, None], p] = True
-    # Back-substitution, one step at a time from the last, as the kernel.
+    return Factor(mr, mi, piv, rows_all, live_all, fr_all, fi_all)
+
+
+def backsub_plain(tb: _Tables, mr, mi, piv):
+    """Back-substitution over the pivot rows, one step at a time from the
+    last, as the kernel; returns x (re, im), each (A, 30) in position
+    order."""
+    A, n = mr.shape[0], tb.c.n
+    ar = torch.arange(A, device=mr.device)
     xsr = mr.new_zeros((A, WIDTH))
     xsi = mr.new_zeros((A, WIDTH))
     xsr[:, n] = -1.0
@@ -562,8 +616,40 @@ def solve_plain(tb: _Tables, m, return_pivots: bool = False):
         den = _inv_den(prr[:, col], pri[:, col])
         xsr[:, col], xsi[:, col] = _cmul(sr, si, -prr[:, col] / den,
                                          pri[:, col] / den)
-    out = (xsr[:, :n], xsi[:, :n])
-    return (out, piv) if return_pivots else out
+    return xsr[:, :n], xsi[:, :n]
+
+
+def solve_plain(tb: _Tables, m, return_pivots: bool = False):
+    """Restricted-pivoting solve of the augmented systems m = (re, im),
+    each (A, 30, 32), overwritten; returns x (re, im), each (A, 30) in
+    position order (and the pivot row of every step)."""
+    f = factor_plain(tb, m)
+    out = backsub_plain(tb, f.mr, f.mi, f.piv)
+    return (out, f.piv) if return_pivots else out
+
+
+def resolve_plain(tb: _Tables, kept: Factor, rhs):
+    """Replay a kept elimination on a new right-hand side rhs = (re, im),
+    each (A, 30) in row order, and back-substitute: each step applies its
+    multipliers to the rhs column alone, in the forward pass's own update
+    (so on the rhs the elimination started from it gives that solve's x
+    bit for bit).  ``kept`` is not modified."""
+    rr, ri = rhs[0].clone(), rhs[1].clone()
+    a3 = torch.arange(rr.shape[0], device=rr.device)[:, None, None]
+    for _, steps, _, cands in tb.stages:
+        C = cands.shape[1]
+        rows = kept.rows[:, steps, :C]                     # (A, S, C)
+        live = kept.live[:, steps, :C]
+        fr, fi = kept.fr[:, steps, :C], kept.fi[:, steps, :C]
+        p = kept.piv[:, steps]
+        pr, pi = rr.gather(1, p)[..., None], ri.gather(1, p)[..., None]
+        old_r, old_i = rr[a3, rows], ri[a3, rows]
+        rr[a3, rows] = torch.where(live, old_r - (fr * pr - fi * pi), old_r)
+        ri[a3, rows] = torch.where(live, old_i - (fr * pi + fi * pr), old_i)
+    n = tb.c.n
+    mr, mi = kept.mr.clone(), kept.mi.clone()
+    mr[:, :, n], mi[:, :, n] = rr, ri
+    return backsub_plain(tb, mr, mi, kept.piv)
 
 
 def _next_map(rmap, used, spec):
@@ -578,6 +664,25 @@ def _next_map(rmap, used, spec):
     return (phys * pick).sum(2)
 
 
+def solver_of(cfg: HCConfig) -> str:
+    """The solve program a configuration runs: the frozen-Jacobian RK
+    stages replay on the schedule program only, as in the JAX package."""
+    return "schedule" if cfg.rk_jacobian_reuse else cfg.solver
+
+
+def check_variant(cfg: HCConfig, consts: FusedConstants) -> None:
+    """Raise ValueError for a step variant the tracker does not run, or
+    the wrong solve program for it (the trackers take every other knob
+    the kernel has, truncate_paths=False included)."""
+    if cfg.predictor not in ("rk4", "rk3", "rk2"):
+        raise ValueError(f"unknown predictor {cfg.predictor!r}")
+    if cfg.predictor_handoff and cfg.rk_jacobian_reuse:
+        raise ValueError("predictor_handoff and rk_jacobian_reuse cannot be "
+                         "combined")
+    if cfg.rk_jacobian_reuse and consts.solver != "schedule":
+        raise ValueError("rk_jacobian_reuse runs the schedule program only")
+
+
 def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
                 xl: torch.Tensor, flags: torch.Tensor, efg: torch.Tensor,
                 niter: Optional[int] = None, tables: Optional[_Tables] = None,
@@ -590,13 +695,26 @@ def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
     Paths are independent, so each step runs on the still-active paths
     only (a finished path's state is final, as in the kernel).  ``work``,
     if given, counts what the paths really did: ``steps`` (path-steps
-    that ran the predictor) and ``newton`` (path corrector iterations),
-    added to its entries; both are known on the host at no cost."""
+    that ran the predictor), ``newton`` (path corrector iterations),
+    ``solves`` (full assemble + eliminate + back-substitute) and
+    ``replays`` (rhs + replay + back-substitute), added to its entries;
+    all are known on the host at no cost.
+
+    Under ``predictor_handoff`` no path has a kept elimination when the
+    call starts, as the kernel keeps it in shared memory only for the
+    length of a launch (and the JAX kernel resets its handoff flag at
+    every launch): a run split over two calls then differs from one call
+    at the first step of the second."""
     tb = tables or _Tables(consts, x.device)
+    check_variant(cfg, consts)
     niter = cfg.max_steps + 1 if niter is None else niter
     st = torch.stack([*_planes(x), *_planes(xl)], dim=1)   # (B, 4, 30)
     ef = efg_planes(efg)
     flags = flags.clone()
+    B = x.shape[0]
+    if cfg.predictor_handoff:
+        valid = torch.zeros(B, dtype=torch.bool, device=x.device)
+        store = _empty_factor(tb, B, x.device)
     for _ in range(niter):
         t = flags[:, _F_T]
         conv = (t >= 1.0) | (1.0 - t <= cfg.t_converged_eps)
@@ -604,14 +722,33 @@ def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
         idx = act.nonzero()[:, 0]
         if idx.numel() == 0:
             break
-        st[idx], flags[idx] = _step(tb, cfg, st[idx], flags[idx], ef[idx],
-                                    work)
+        ho = (valid[idx], store.index(idx)) if cfg.predictor_handoff else None
+        st[idx], flags[idx], ho = _step(tb, cfg, st[idx], flags[idx],
+                                        ef[idx], work, ho)
+        if ho is not None:
+            valid[idx] = ho[0]
+            _put(store, idx, ho[1])
     return (torch.complex(st[:, 0], st[:, 1]),
             torch.complex(st[:, 2], st[:, 3]), flags)
 
 
-def _step(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
-    """One HC step on active paths: st (A, 4, 30) = x re/im, xl re/im."""
+def _empty_factor(tb: _Tables, B: int, device) -> Factor:
+    S = tb.c.num_steps
+    z = torch.zeros((B, tb.c.n, WIDTH), device=device)
+    steps = torch.zeros((B, S, CMAX), device=device)
+    return Factor(z, z.clone(), torch.zeros((B, S), dtype=torch.long,
+                                            device=device),
+                  steps.long(), steps.bool(), steps, steps.clone())
+
+
+def _put(dst: Factor, idx, src: Factor) -> None:
+    for d, s in zip(dst, src):
+        d[idx] = s
+
+
+def _step(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
+    """One HC step on active paths: st (A, 4, 30) = x re/im, xl re/im;
+    ``ho`` as in ``_advance``."""
     t = fl[:, _F_T]
     fl = fl.clone()
     fl[:, _F_EZ] = torch.maximum(
@@ -625,13 +762,36 @@ def _step(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
         if bool(prune.any()):
             st = st.clone()
             go = (~prune).nonzero()[:, 0]
-            st[go], fl[go] = _advance(tb, cfg, st[go], fl[go], ef[go], work)
-            return st, fl
-    return _advance(tb, cfg, st, fl, ef, work)
+            if go.numel() == 0:
+                return st, fl, ho
+            sub = None if ho is None else (ho[0][go], ho[1].index(go))
+            st[go], fl[go], sub = _advance(tb, cfg, st[go], fl[go], ef[go],
+                                           work, sub)
+            if ho is not None:
+                # A pruned path takes no further step.
+                ho[0][go] = sub[0]
+                _put(ho[1], go, sub[1])
+            return st, fl, ho
+    return _advance(tb, cfg, st, fl, ef, work, ho)
 
 
-def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
-    """RK4 predictor + Newton corrector + step-size policy."""
+def _sub(pair, idx):
+    return pair[0][idx], pair[1][idx]
+
+
+def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
+    """Predictor + Newton corrector + step-size policy; returns (st, fl,
+    the handoff for the next step).
+
+    The predictor is RK4, or ``cfg.predictor`` "rk3" (Kutta's rule) or
+    "rk2" (the midpoint rule).  The saved-factorization variants replay a
+    kept elimination on a fresh rhs (``resolve_plain``) in place of a full
+    solve: ``rk_jacobian_reuse``, stage 1's at the later RK stages;
+    ``corrector_jacobian_reuse`` = k, the last full iteration's at
+    corrector iterations k and on; ``predictor_handoff``, at stage 1 the
+    previous step's last full corrector elimination, on the paths where
+    ``ho`` = (valid (A,), kept Factor) says that step did not roll back.
+    That is the JAX kernel's handoff at a tile of one path."""
     t, dt, succ = fl[:, _F_T], fl[:, _F_DT], fl[:, _F_SC]
     dtc = torch.where(fl[:, _F_EZ] > 0.5,
                       torch.minimum(dt, (1.0 - t).abs()),
@@ -641,42 +801,88 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
     tc = tb_ + half
     efg = ef.unbind(1)
     x = (st[:, 0], st[:, 1])
+    A = t.shape[0]
 
-    def stage(a, k, P, R):
-        """Solve at x + a * k (k None: at x)."""
-        xv = x if k is None else (x[0] + a * k[0], x[1] + a * k[1])
-        return solve_plain(tb, _assemble(tb, xv, P, R, want_h=False))
+    def count(key, k):
+        if work is not None:
+            work[key] = work.get(key, 0) + k
+
+    def full(xv, P, R, want_h=False):
+        count("solves", xv[0].shape[0])
+        f = factor_plain(tb, _assemble(tb, xv, P, R, want_h))
+        return f, backsub_plain(tb, f.mr, f.mi, f.piv)
+
+    def replay(kept, xv, P, R, want_h=False):
+        count("replays", xv[0].shape[0])
+        return resolve_plain(
+            tb, kept, _assemble(tb, xv, P, R, want_h, rhs_only=True))
 
     P, R = _fill(efg, t, rk=True)
-    k1 = stage(None, None, P, R)
+    if ho is not None and bool(ho[0].any()):
+        hv, hf = ho[0].nonzero()[:, 0], (~ho[0]).nonzero()[:, 0]
+        k1 = (torch.empty_like(x[0]), torch.empty_like(x[1]))
+        kv = replay(ho[1].index(hv), _sub(x, hv), _sub(P, hv), _sub(R, hv))
+        for j in range(2):
+            k1[j][hv] = kv[j]
+        if hf.numel():
+            kf = full(_sub(x, hf), _sub(P, hf), _sub(R, hf))[1]
+            for j in range(2):
+                k1[j][hf] = kf[j]
+    else:
+        f1, k1 = full(x, P, R)
+
+    def stage(xv, P, R):
+        if cfg.rk_jacobian_reuse:
+            return replay(f1, xv, P, R)
+        return full(xv, P, R)[1]
+
+    def axpy(a, k):
+        return x[0] + a * k[0], x[1] + a * k[1]
+
     P, R = _fill(efg, tb_, rk=True)
-    k2 = stage(half[:, None], k1, P, R)
-    k3 = stage(half[:, None], k2, P, R)
-    P, R = _fill(efg, tc, rk=True)
-    k4 = stage(dtc[:, None], k3, P, R)
+    k2 = stage(axpy(half[:, None], k1), P, R)
+    d = dtc[:, None]
     # A tensor divisor: PyTorch on CUDA multiplies by the reciprocal of a
     # scalar one, which is not the kernel's (correctly rounded) division.
     sixth = (dtc / torch.full_like(dtc, 6.0))[:, None]
-    cur = torch.stack([
-        x[j] + sixth * (k1[j] + 2.0 * (k2[j] + k3[j]) + k4[j])
-        for j in range(2)], dim=1)                         # (A, 2, 30)
+    if cfg.predictor == "rk2":
+        cur = torch.stack(axpy(d, k2), dim=1)              # (A, 2, 30)
+    elif cfg.predictor == "rk3":
+        P, R = _fill(efg, tc, rk=True)
+        k3 = stage(tuple(x[j] - d * k1[j] + 2.0 * d * k2[j]
+                         for j in range(2)), P, R)
+        cur = torch.stack([x[j] + sixth * (k1[j] + 4.0 * k2[j] + k3[j])
+                           for j in range(2)], dim=1)
+    else:
+        k3 = stage(axpy(half[:, None], k2), P, R)
+        P, R = _fill(efg, tc, rk=True)
+        k4 = stage(axpy(d, k3), P, R)
+        cur = torch.stack([
+            x[j] + sixth * (k1[j] + 2.0 * (k2[j] + k3[j]) + k4[j])
+            for j in range(2)], dim=1)
 
     # Newton corrector at frozen t_c; a path stops at its first success
     # or divergence.
     P, _ = _fill(efg, tc, rk=False)
-    A = t.shape[0]
     ok = torch.zeros(A, dtype=torch.bool, device=t.device)
     inf = torch.zeros_like(ok)
     live = torch.arange(A, device=t.device)
-    if work is not None:
-        work["steps"] = work.get("steps", 0) + A
-    for _ in range(cfg.max_correction_steps):
-        if work is not None:
-            work["newton"] = work.get("newton", 0) + live.numel()
+    cjr = cfg.corrector_jacobian_reuse
+    kept = last = None   # the live paths' / every path's last full one
+    count("steps", A)
+    for it in range(cfg.max_correction_steps):
+        count("newton", live.numel())
         cw = cur[live]
-        Pl = (P[0][live], P[1][live])
-        dr, di = solve_plain(
-            tb, _assemble(tb, (cw[:, 0], cw[:, 1]), Pl, Pl, want_h=True))
+        xw, Pl = (cw[:, 0], cw[:, 1]), _sub(P, live)
+        if cjr and it >= cjr:
+            dr, di = replay(kept, xw, Pl, Pl, want_h=True)
+        else:
+            kept, (dr, di) = full(xw, Pl, Pl, want_h=True)
+            if ho is not None:
+                if last is None:
+                    last = kept
+                else:
+                    _put(last, live, kept)
         nr = torch.stack([cw[:, 0] - dr, cw[:, 1] - di], dim=1)
         sq_dx = _lane_sum(_pad_lanes(dr * dr + di * di))
         sq_x = _lane_sum(_pad_lanes(nr[:, 0] * nr[:, 0] + nr[:, 1] * nr[:, 1]))
@@ -684,9 +890,12 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
         i_i = sq_x > cfg.infinity_norm_sq
         cur[live] = nr
         ok[live], inf[live] = s_i, i_i
-        live = live[~(s_i | i_i)]
+        going = ~(s_i | i_i)
+        live = live[going]
         if live.numel() == 0:
             break
+        if cjr:
+            kept = kept.index(going)
 
     good = ~inf & ok
     fail = ~inf & ~ok
@@ -705,7 +914,9 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work):
     fl[:, _F_SC] = torch.where(bump, torch.zeros_like(succ2), succ2)
     fl[:, _F_INF] = torch.where(inf, torch.ones_like(t), fl[:, _F_INF])
     fl[:, _F_NST] = fl[:, _F_NST] + 1.0
-    return torch.cat([x_new, xl_new], dim=1), fl
+    # The handoff is valid after a step that did not roll back.
+    ho = None if ho is None else (~fail, last)
+    return torch.cat([x_new, xl_new], dim=1), fl, ho
 
 
 # ---------------------------------------------------------------------------
@@ -734,8 +945,8 @@ def make_track_fn(problem: TrifocalProblem, cfg: HCConfig):
 def make_plain_track_fn(problem: TrifocalProblem, cfg: HCConfig):
     """The same tracker running ``track_plain`` on any device: the
     kernel's reference on the card.  Its ``track`` takes ``work``, a dict
-    in which ``track_plain`` counts the path-steps and corrector
-    iterations."""
+    in which ``track_plain`` counts the path-steps, corrector iterations,
+    full solves and replays."""
     return _make_tracker(problem, cfg, plain=True)
 
 
@@ -767,7 +978,8 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
         _kernels,
     )
 
-    c = FusedConstants.build(problem, solver=cfg.solver)
+    c = FusedConstants.build(problem, solver=solver_of(cfg))
+    check_variant(cfg, c)
     on = device_constants(c, plain)
 
     def track(x0: torch.Tensor, target_params: torch.Tensor,

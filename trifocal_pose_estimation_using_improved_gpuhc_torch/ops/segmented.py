@@ -21,7 +21,13 @@ steps left of the budget.  Between segments:
   end.
 
 Segmenting and packing only reschedule the work: per path, the flags, the
-step counts and x are those of one call over the whole budget.
+step counts and x are those of one call over the whole budget.  Except
+under ``predictor_handoff``: the kernel keeps the corrector's elimination
+only within a launch (``track_plain`` within a call), so every segment's
+first step starts with a full stage-1 solve, as the JAX kernel's does (it
+resets its handoff flag at every launch).  There segmented tracking is not
+one call path for path, in the JAX package either; it is each segment's
+call on the carried state.
 
 The loop ends when no path is active, when the budget is spent, or when
 the found flag is set.  The JAX package keeps that test on the device in
@@ -125,6 +131,7 @@ class _Run:
         self.si = 0
         self.n_live = B   # paths the next launch covers
         self._flag = None
+        self.work = None  # track_plain's work counts, if asked for
 
     def advance(self) -> None:
         tr, hc = self.tr, self.tr.hc
@@ -133,7 +140,7 @@ class _Run:
         if isinstance(self.aux, fused._Tables):
             self.x[:n], self.xl[:n], self.fl[:n] = fused.track_plain(
                 tr.consts, hc, self.x[:n], self.xl[:n], self.fl[:n],
-                self.efg[:n], niter=niter, tables=self.aux)
+                self.efg[:n], niter=niter, tables=self.aux, work=self.work)
         else:
             tr.kernels.hc_track(self.x[:n], self.xl[:n], self.fl[:n],
                                 self.efg[:n], self.aux, niter, hc)
@@ -217,7 +224,7 @@ class _Tracker:
     """The per-problem constants of make_segmented_track_fn."""
 
     def __init__(self, problem, hc: HCConfig,
-                 ransac_cfg: Optional[RansacConfig]):
+                 ransac_cfg: Optional[RansacConfig], plain: bool):
         from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
             _kernels,
         )
@@ -225,8 +232,12 @@ class _Tracker:
         self.kernels = _kernels
         self.problem = problem
         self.hc = hc
-        self.consts = fused.FusedConstants.build(problem, solver=hc.solver)
-        self.on = fused.device_constants(self.consts)
+        # rk_jacobian_reuse runs the schedule program, as in the JAX
+        # package's segmented tracker.
+        self.consts = fused.FusedConstants.build(problem,
+                                                 solver=fused.solver_of(hc))
+        fused.check_variant(hc, self.consts)
+        self.on = fused.device_constants(self.consts, plain)
         self.seg = max(1, hc.segment_steps)
         self.budget = hc.max_steps + 1
         self.n_segments = -(-self.budget // self.seg)
@@ -238,23 +249,31 @@ class _Tracker:
 
 
 def make_segmented_track_fn(problem, hc: HCConfig,
-                            ransac_cfg: Optional[RansacConfig] = None):
+                            ransac_cfg: Optional[RansacConfig] = None,
+                            plain: bool = False):
     """Build ``track(x0 (B, V), target_params (B, P+1), edgels=None,
-    intrinsics=None, n_edgels=None) -> SegmentedResult``.
+    intrinsics=None, n_edgels=None, work=None) -> SegmentedResult``.
+
+    With ``plain`` every segment runs ``fused.track_plain``, on the card
+    too (the segmented kernel's reference), and ``work`` is its dict of
+    work counts (see ``track_plain``).
 
     Scoring runs only when ``ransac_cfg.abort_by_good_sol`` is set, and
     then needs the view's edgels (N, 6) and intrinsics (3, 3) on the
     tensors' device.  ``track.begin`` starts a call without running it
     (see ``_Run``), for the engine's chunked abort round."""
-    tr = _Tracker(problem, hc, ransac_cfg)
+    tr = _Tracker(problem, hc, ransac_cfg, plain)
 
     def begin(x0, target_params, edgels=None, intrinsics=None,
               n_edgels=None) -> _Run:
         return _Run(tr, x0, target_params, edgels, intrinsics, n_edgels)
 
     def track(x0, target_params, edgels=None, intrinsics=None,
-              n_edgels=None) -> SegmentedResult:
+              n_edgels=None, work=None) -> SegmentedResult:
         run = begin(x0, target_params, edgels, intrinsics, n_edgels)
+        if work is not None and not isinstance(run.aux, fused._Tables):
+            raise ValueError("work is counted by track_plain only")
+        run.work = work
         run.advance()
         while run.keep():
             run.advance()

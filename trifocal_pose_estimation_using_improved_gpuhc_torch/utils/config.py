@@ -123,19 +123,28 @@ def ransac_data_dir(cfg: EngineConfig) -> str:
 _SHIPPED_HC = {
     "solver": ("reduced", "schedule"),
     "pair_coef_basis": ("efg",),
-    "predictor": ("rk4",),
+    "predictor": ("rk4", "rk3", "rk2"),
     "eval_structure": ("classic",),
-    "rk_jacobian_reuse": (False,),
-    "corrector_jacobian_reuse": (0,),
-    "predictor_handoff": (False,),
+    "rk_jacobian_reuse": (False, True),
+    "corrector_jacobian_reuse": (0, 1, 2),
+    "predictor_handoff": (False, True),
     "truncate_paths": (True,),
+    # The JAX package runs its full-pivot XLA oracle ("xla") or the P2C
+    # tracker ("p2c") for the other backends; the port has neither yet.
+    "backend": ("fused",),
+    # On the TPU these three are matmul modes that all compute the FP32
+    # evaluation (exact 3-term bf16 splits, or HIGHEST), and in interpret
+    # mode the JAX kernel runs plain f32 for each: the port's FP32
+    # evaluation is each of them.  "split3_rk2" evaluates the predictor
+    # with 2-term splits (about 16 significant bits), another function.
+    "eval_precision": ("split3k", "split3", "highest"),
 }
 _SHIPPED_RANSAC = {"abort_by_good_sol": (False, True)}
 
 
 def check_shipped(cfg: EngineConfig) -> None:
     """Raise ValueError unless every semantic knob has a value the port
-    implements."""
+    implements, in a combination the JAX kernel accepts."""
     for section, shipped in (("hc", _SHIPPED_HC), ("ransac", _SHIPPED_RANSAC)):
         sub = getattr(cfg, section)
         for name, allowed in shipped.items():
@@ -145,6 +154,11 @@ def check_shipped(cfg: EngineConfig) -> None:
                     f"{section}.{name}={got!r} is not supported by the torch "
                     f"port (only {', '.join(map(repr, allowed))})"
                 )
+    if cfg.hc.predictor_handoff and cfg.hc.rk_jacobian_reuse:
+        # Both replay one saved factorization at RK stage 1 or after it;
+        # the JAX kernel refuses the pair (ops/fused.py there).
+        raise ValueError("hc.predictor_handoff and hc.rk_jacobian_reuse "
+                         "cannot be combined")
 
 
 def resolve_data_root(cfg: EngineConfig, verbose: bool = True) -> EngineConfig:
