@@ -6,8 +6,8 @@
 Phases (each prints its lines; any failure raises and exits nonzero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. the kernel builds (csrc/hc_track.cu with nvcc, the default and each
-     step variant of phase 8, all at once), their seconds and ptxas's
-     resource lines;
+     variant build of phases 8 and 9, all at once), their seconds and
+     ptxas's resource lines;
   3. the kernel against its plain PyTorch twin (ops/fused.track_plain) on
      the card, condensed solve ("reduced"): 1 hypothesis x all paths;
   4. the main path: one RANSAC round (view 0, seed 0, H=100 hypotheses)
@@ -31,13 +31,21 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      plain run's full solves and replays and the bound from them, an H=100
      engine round, the segmented tracker alone on the H=100 inputs against
      track_plain over the same segments, and an abort round under
-     corrector_jacobian_reuse=2.
+     corrector_jacobian_reuse=2;
+  9. the evaluation variants: eval_precision "split3_rk2" (the RK stages
+     at 2-term bf16 splits) and pair_coef_basis "abc", each a build of its
+     own, as in phase 8 and bit for bit against their plain twins, with
+     the abc round's real solutions beside the default's; eval_structure
+     "gathered" and "merged", which run the default build, through an
+     H=100 engine round whose launches are counted and whose paths equal
+     the default round's.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
 the round's 30,700 paths; and one per variant, with its segmented tracker's
-ms, the plain run over the same segments and plain_paths), and as the last
-line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
+ms, the plain run over the same segments and plain_paths; the two
+structures repeat the reduced entry's numbers with their own launches),
+and as the last line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
 import dataclasses
@@ -47,6 +55,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H_ROUND = 100
@@ -68,12 +77,21 @@ REPLACES = {
 VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
             "cjr1": dict(corrector_jacobian_reuse=1),
             "cjr2": dict(corrector_jacobian_reuse=2),
-            "cph": dict(predictor_handoff=True),
+            "cph": dict(predictor_handoff=True, tile=1),
             "rkj": dict(rk_jacobian_reuse=True)}
+# The evaluation variants of phase 9: two builds of their own, and two
+# structures that run the default build.
+EVAL_BUILDS = {"split2": dict(eval_precision="split3_rk2"),
+               "abc": dict(pair_coef_basis="abc")}
+EVAL_STRUCTURES = {"gathered": dict(eval_structure="gathered"),
+                   "merged": dict(eval_structure="merged")}
 _JAX_FUSED = "trifocal_pose_estimation_using_improved_gpuhc_tpu/ops/fused.py"
 REPLACES_VARIANT = {"rk2": f"{_JAX_FUSED}:1743", "rk3": f"{_JAX_FUSED}:1747",
                     "cjr1": f"{_JAX_FUSED}:1784", "cjr2": f"{_JAX_FUSED}:1784",
-                    "cph": f"{_JAX_FUSED}:1703", "rkj": f"{_JAX_FUSED}:1699"}
+                    "cph": f"{_JAX_FUSED}:1703", "rkj": f"{_JAX_FUSED}:1699",
+                    "split2": f"{_JAX_FUSED}:140", "abc": f"{_JAX_FUSED}:743",
+                    "gathered": f"{_JAX_FUSED}:783",
+                    "merged": f"{_JAX_FUSED}:816"}
 
 
 def flips(a, b):
@@ -186,25 +204,52 @@ def replay_flops(c):
     return flops
 
 
-# Per path-step outside the solves, by predictor order: the fills of P and
-# dP/dt (20 per pair each, one per distinct t) and of P for the corrector
-# (10), and the stage points and the RK combination.
-STEP_FLOPS = {4: (3 * 20 + 10, 740), 3: (3 * 20 + 10, 740),
-              2: (2 * 20 + 10, 260)}
+def split_flops(c, rhs_only=False):
+    """FP32 operations that eval_precision "split3_rk2" adds to one RK-stage
+    assembly (or, rhs_only, to a replay's rhs), counted as the function
+    needs them (the JAX package's _eval_core with _sdot2): the point's
+    split, a subtraction and an addition per real (4 per entry); the same
+    once per distinct monomial the evaluation uses (4); the low part of
+    each combo's value v = P x^m, once per combo (2); per term the second
+    sum (4); per entry the add of the two sums (2).  The kernel splits
+    each term's monomial and value again, redundant work it is not
+    credited for.  The bf16 conversions are conversions, not counted."""
+    nz_terms, rhs_terms = c.term_lists()
+    monos, combos = len(np.unique(c.ht_m)), len(c.ht_q)
+    terms, entries = sum(map(len, rhs_terms)), c.n
+    if not rhs_only:
+        monos += len(np.unique(c.hx_m))
+        combos += len(c.hx_q)
+        terms += sum(map(len, nz_terms))
+        entries += len(nz_terms)
+    return 4 * c.n + 4 * monos + 2 * combos + 4 * terms + 2 * entries
 
 
-def tracker_bound(c, work, n_paths, order=4):
+# Per path-step outside the solves: the RK stages' fills of P and dP/dt
+# (one per distinct t: 3 for rk4 and rk3, 2 for rk2) and the corrector's
+# fill of P, per pair (two-point basis 20 and 10, "abc" 14 and 8), and the
+# stage points and the RK combination, by predictor order.
+RK_FILLS = {4: 3, 3: 3, 2: 2}
+FILL_FLOPS = {"efg": (20, 10), "abc": (14, 8)}
+STEP_FLOPS = {4: 740, 3: 740, 2: 260}
+
+
+def tracker_bound(c, work, n_paths, order=4, basis="efg"):
     """(bound_ms, bound_by) of one tracker call over n_paths: the larger of
     the FP32 operations its paths really did (work: the path-steps,
-    corrector iterations, full solves and replays counted by track_plain,
-    which the kernel matches bit for bit) over 67 TFLOP/s and its bytes
-    (state, flags and coefficients read once, state and flags written
-    once, the plan read once) over 3.35 TB/s."""
-    per_pair, per_step = STEP_FLOPS[order]
+    corrector iterations, full solves and replays, and those of them that
+    were split RK-stage evaluations, counted by track_plain, which the
+    kernel matches bit for bit) over 67 TFLOP/s and its bytes (state,
+    flags and coefficients read once, state and flags written once, the
+    plan read once) over 3.35 TB/s."""
+    rk_fill, corr_fill = FILL_FLOPS[basis]
+    per_pair = RK_FILLS[order] * rk_fill + corr_fill
     # A corrector iteration beyond its solve: the update and two norms.
     flops = (work["solves"] * solve_flops(c)
              + work.get("replays", 0) * replay_flops(c)
-             + work["steps"] * (per_pair * c.q + per_step)
+             + work.get("split_solves", 0) * split_flops(c)
+             + work.get("split_replays", 0) * split_flops(c, rhs_only=True)
+             + work["steps"] * (per_pair * c.q + STEP_FLOPS[order])
              + work["newton"] * 240)
     nbytes = n_paths * (4 * 30 * 8 + 2 * 8 * 4 + 3 * c.q * 8) \
         + 4 * c.kernel_plan().size
@@ -241,13 +286,13 @@ def main() -> int:
     print(f"torch: {torch.cuda.get_device_name(0)} (torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
 
-    # 2. The kernel builds: the default and every step variant of phase 8,
-    # one nvcc each, all started together.
+    # 2. The kernel builds: the default and every variant build of phases
+    # 8 and 9, one nvcc each, all started together.
     cfg = resolve_data_root(
         EngineConfig(data_root=os.path.join(ROOT, "data", "synth_trifocal")))
     hc = cfg.hc
     variants = {name: dataclasses.replace(hc, **knobs)
-                for name, knobs in VARIANTS.items()}
+                for name, knobs in {**VARIANTS, **EVAL_BUILDS}.items()}
     t0 = time.perf_counter()
     _kernels.build_hc_track([hc, *variants.values()])
     print(f"build: {len(_kernels.build_seconds)} builds of hc_track.cu in "
@@ -358,11 +403,13 @@ def main() -> int:
     assert abs(rr.best_support31 - rp_round.best_support31) <= sup_tol
 
     x0, tgt = inputs(H_ROUND)
-    rk, rp, ms, plain_ms, work = alone(kernel_track, plain_track, x0, tgt, 1)
+    rk, rp, ms, plain_ms_reduced, work = alone(kernel_track, plain_track, x0,
+                                               tgt, 1)
     abs_err, rel = x_errors(rk, rp)
     nf = flips(rk, rp)
     bound_ms, bound_by = tracker_bound(kernel_track.constants, work, n)
-    print(f"kernel alone {ms:.3f} ms, plain {plain_ms:.3f} ms on {n} paths; "
+    print(f"kernel alone {ms:.3f} ms, plain {plain_ms_reduced:.3f} ms on {n} "
+          f"paths; "
           f"flag flips {nf}, bit-identical paths {identical(rk, rp)}/{n}, x max "
           f"abs err {abs_err:.3e}, rel {rel:.3e}; work {work['steps']} "
           f"path-steps, {work['newton']} corrector iterations; bound "
@@ -370,7 +417,8 @@ def main() -> int:
     assert nf <= max(3, int(FLIP_FRAC * n)), nf
     assert rel < REL_TOL, rel
     k_reduced = dict(program="reduced", launches=launches,
-                     max_abs_err=abs_err, ms_one_launch=ms, plain_ms=plain_ms,
+                     max_abs_err=abs_err, ms_one_launch=ms,
+                     plain_ms=plain_ms_reduced,
                      bound_ms=bound_ms, bound_by=bound_by)
 
     # 5. The static-schedule solve (K1e).
@@ -456,18 +504,23 @@ def main() -> int:
     pose_line(ra)
     assert ra.chunks_run < n_chunks, ra.chunks_run
 
-    # 8. The step variants, each a build of its own: kernel against plain
-    # on the H=10 round's paths, the H=100 engine round, and the segmented
-    # tracker alone on the round's inputs (kernel, then track_plain over
-    # the same segments, which counts the work).
+    # 8. The step variants, each a build of its own, and 9. the evaluation
+    # variants with builds of their own: kernel against plain on the H=10
+    # round's paths, the H=100 engine round, and the segmented tracker
+    # alone on the round's inputs (kernel, then track_plain over the same
+    # segments, which counts the work).  Phase 9's builds must agree bit
+    # for bit on every path.
     def work_line(work):
         return (f"{work['steps']} path-steps, {work['newton']} corrector "
                 f"iterations, {work['solves']} full solves, "
-                f"{work.get('replays', 0)} replays")
+                f"{work.get('replays', 0)} replays, "
+                f"{work.get('split_solves', 0)} + "
+                f"{work.get('split_replays', 0)} split")
 
     x10, tgt10 = inputs(10)
     m10 = x10.shape[0]
     for name, hc_v in variants.items():
+        exact = name in EVAL_BUILDS
         kv = fused.make_track_fn(problem, hc_v)
         pv = fused.make_plain_track_fn(problem, hc_v)
         c_v = kv.constants
@@ -475,16 +528,19 @@ def main() -> int:
         rk10, rp10, ms10, plain10, work10 = alone(kv, pv, x10, tgt10, 1)
         nf10 = flips(rk10, rp10)
         abs10, rel10 = x_errors(rk10, rp10)
-        b10, by10 = tracker_bound(c_v, work10, m10, order)
+        b10, by10 = tracker_bound(c_v, work10, m10, order,
+                                  hc_v.pair_coef_basis)
+        same10 = identical(rk10, rp10)
         print(f"{name} ({_kernels.hc_track_label(hc_v)}, {c_v.solver}) "
               f"kernel vs plain on {m10} paths: flag flips {nf10}, converged "
               f"{int(rk10.converged.sum())}/{int(rp10.converged.sum())}, "
-              f"bit-identical paths {identical(rk10, rp10)}/{m10}, x max abs "
+              f"bit-identical paths {same10}/{m10}, x max abs "
               f"err {abs10:.3e}, rel {rel10:.3e}; work {work_line(work10)}; "
               f"kernel alone {ms10:.3f} ms (median of 3), plain {plain10:.3f} "
               f"ms, bound {b10:.3f} ms ({by10})", flush=True)
         assert nf10 <= max(1, int(FLIP_FRAC * m10)), nf10
         assert rel10 < REL_TOL, rel10
+        assert not exact or same10 == m10, same10
 
         # RKJ and CJR=1 converge worse: found_pose is printed, not asserted.
         cfg_v = dataclasses.replace(cfg, hc=hc_v)
@@ -494,6 +550,12 @@ def main() -> int:
         round_line(f"{name} round H={H_ROUND} (segmented, compaction)", rr_v,
                    launches_v)
         assert launches_v > 0, f"the {name} round did not launch the kernel"
+        if name == "abc":
+            # The basis's known floor under the imaginary residues.
+            print(f"abc round: {rr_v.stats.num_real} real solutions against "
+                  f"the two-point basis's {rr.stats.num_real} (converged "
+                  f"{rr_v.stats.num_converged} / {rr.stats.num_converged})",
+                  flush=True)
 
         seg_v = segmented.make_segmented_track_fn(problem, hc_v)
         runs = [timed(lambda: seg_v(x0, tgt).track) for _ in range(3)]
@@ -504,15 +566,18 @@ def main() -> int:
         rs = runs[0][0]
         nf_v = flips(rs, rp_v)
         abs_v, rel_v = x_errors(rs, rp_v)
-        bound_v, by_v = tracker_bound(c_v, work, n, order)
+        bound_v, by_v = tracker_bound(c_v, work, n, order,
+                                      hc_v.pair_coef_basis)
+        same_v = identical(rs, rp_v)
         print(f"{name} segmented tracker on {n} paths: {seg_ms:.3f} ms "
               f"(median of 3); plain over the same segments {plain_ms:.3f} "
               f"ms; flag flips {nf_v}, bit-identical paths "
-              f"{identical(rs, rp_v)}/{n}, x max abs err {abs_v:.3e}; work "
+              f"{same_v}/{n}, x max abs err {abs_v:.3e}; work "
               f"{work_line(work)}; bound {bound_v:.3f} ms ({by_v})",
               flush=True)
         assert nf_v <= max(3, int(FLIP_FRAC * n)), nf_v
         assert rel_v < REL_TOL, rel_v
+        assert not exact or same_v == n, same_v
         kernels.append(dict(program=c_v.solver, variant=name,
                             replaces=REPLACES_VARIANT[name],
                             launches=launches_v, max_abs_err=abs_v, ms=seg_ms,
@@ -531,6 +596,29 @@ def main() -> int:
                   f"{rva.track_ms:.3f}, total_ms {rva.total_ms:.3f}",
                   flush=True)
             assert launches_va > 0, "the cjr2 abort round did not launch"
+
+    # 9, continued: the structures run the default build, so their round
+    # equals the default's path for path.  Their kernels entries are the
+    # default build's numbers from phases 4 and 6, with the round's own
+    # launches.
+    for name, knobs in EVAL_STRUCTURES.items():
+        hc_v = dataclasses.replace(hc, **knobs)
+        assert _kernels.hc_track_label(hc_v) == _kernels.hc_track_label(hc)
+        engine_v = eng.TrifocalPoseEngine(dataclasses.replace(cfg, hc=hc_v))
+        rr_v, launches_v = counted_round(engine_v)
+        round_line(f"{name} round H={H_ROUND} (segmented, compaction, no "
+                   f"warm-up)", rr_v, launches_v)
+        assert launches_v > 0, f"the {name} round did not launch the kernel"
+        for f in ("converged", "inf_fail", "pruned", "num_steps"):
+            assert (getattr(rr_v, f) == getattr(rr, f)).all(), f
+        print(f"{name}: the round equals the default's on all {n} paths "
+              f"(flags and step counts); it runs the default build "
+              f"{_kernels.hc_track_label(hc)}", flush=True)
+        kernels.append(dict(
+            k_reduced, variant=name, replaces=REPLACES_VARIANT[name],
+            launches=launches_v, plain_paths=n,
+            note="the default build: ms, plain_ms, bound and error are the "
+                 "reduced entry's"))
 
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [dict(

@@ -1,5 +1,11 @@
 """The operation count behind chip_smoke.py's bound of the tracker kernel.
 
+Under eval_precision "split3_rk2" the RK stages' evaluations add the
+split's FP32 operations (``split_flops``, pinned here), counted once per
+point entry, distinct monomial and combo as the function needs them, not
+per term as the kernel redoes them; its bf16 conversions are conversions
+and are not counted in the bound.
+
 ``chip_smoke.fill_steps`` gives, per pivot step of a solve program, the
 columns the pivot row may hold (the symbolic pattern with fill), and
 ``solve_flops`` counts the solve over those columns only.  The count is
@@ -88,14 +94,31 @@ def test_replay_flops_of_the_committed_problem(problem, solver, flops):
         + updates + backsub == flops
 
 
-# (knobs, RK stages per step, stages that replay)
+@pytest.mark.parametrize("solver", ["reduced", "schedule"])
+def test_split_flops_of_the_committed_problem(problem, solver):
+    """The split's added count, as the function needs it: 4 per point
+    entry, 4 per distinct monomial (107 quadratic, 175 cubic), 2 per combo
+    (450 Hx, 461 rhs), 4 per term (926 Hx, 528 rhs) and 2 per entry
+    (170 + 30) of an RK-stage assembly, or of a replay's rhs alone."""
+    c = fused.FusedConstants.build(problem, solver=solver)
+    assert chip_smoke.split_flops(c) == \
+        120 + 4 * 282 + 2 * 911 + 4 * 1454 + 2 * 200 == 9286
+    assert chip_smoke.split_flops(c, rhs_only=True) == \
+        120 + 4 * 175 + 2 * 461 + 4 * 528 + 2 * 30 == 3914
+
+
+# (knobs, RK stages per step)
 _WORK = {
     "rk4": ({}, 4), "rk3": (dict(predictor="rk3"), 3),
     "rk2": (dict(predictor="rk2"), 2),
     "cjr1": (dict(corrector_jacobian_reuse=1), 4),
     "cjr2": (dict(corrector_jacobian_reuse=2), 4),
-    "cph": (dict(predictor_handoff=True), 4),
+    "cph": (dict(predictor_handoff=True, tile=1), 4),
     "rkj": (dict(rk_jacobian_reuse=True), 4),
+    "split2": (dict(eval_precision="split3_rk2"), 4),
+    "abc": (dict(pair_coef_basis="abc"), 4),
+    "rkj-split2": (dict(rk_jacobian_reuse=True,
+                        eval_precision="split3_rk2"), 4),
 }
 
 
@@ -103,7 +126,9 @@ _WORK = {
 def test_track_plain_counts_solves_and_replays(problem, variant):
     """The work the bound is computed from: every RK stage and corrector
     iteration is one full solve or one replay; RKJ replays stages 2-4,
-    CPH at most stage 1, CJR only corrector iterations."""
+    CPH at most stage 1, CJR only corrector iterations; under
+    "split3_rk2" every RK stage's, and no corrector iteration's, is
+    split."""
     knobs, stages = _WORK[variant]
     hc = dataclasses.replace(config.HCConfig(), **knobs)
     c = fused.FusedConstants.build(problem, solver=fused.solver_of(hc))
@@ -115,13 +140,18 @@ def test_track_plain_counts_solves_and_replays(problem, variant):
         view.edge_locations, view.edge_tangents, s)).repeat(16, 1)
     work = {}
     fused.track_plain(c, hc, x, x, fused.init_flags(hc, 16),
-                      fused.build_pair_coefs(problem, tgt), niter=6,
+                      fused.build_pair_coefs(problem, tgt,
+                                             hc.pair_coef_basis), niter=6,
                       work=work)
     steps, newton = work["steps"], work["newton"]
     replays = work.get("replays", 0)
     assert steps == 16 * 6
     assert work["solves"] + replays == stages * steps + newton
-    if variant == "rkj":
+    split = work.get("split_solves", 0) + work.get("split_replays", 0)
+    assert split == (stages * steps if "split2" in variant else 0)
+    if variant == "rkj-split2":
+        assert work.get("split_replays", 0) == replays == 3 * steps
+    elif variant == "rkj":
         assert replays == 3 * steps
     elif variant == "cph":
         assert 0 < replays < steps

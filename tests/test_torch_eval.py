@@ -105,8 +105,9 @@ def test_kernel_form_matches_jax(problems, inputs, rk):
     (hx_r, h_r, mht_r), _, _ = _jax_eval(jp, x, tgt, t)
     c = fused.FusedConstants.build(port)
     tb = fused._Tables(c, "cpu")
-    efg = fused.efg_planes(fused.build_pair_coefs(port, torch.as_tensor(tgt)))
-    P, R = fused._fill(efg.unbind(1), torch.as_tensor(t), rk=rk)
+    efg = fused.efg_planes(fused.build_pair_coefs(port, torch.as_tensor(tgt),
+                                                  "efg"))
+    P, R = fused._fill(efg.unbind(1), torch.as_tensor(t), rk=rk, basis="efg")
     xpos = torch.as_tensor(x)[:, torch.as_tensor(c.perm, dtype=torch.long)]
     mr, mi = fused._assemble(tb, (xpos.real, xpos.imag), P, R,
                              want_h=not rk)
@@ -122,7 +123,7 @@ def test_pair_basis_exact_at_t1(problems, inputs):
     """P(t = 1) is exactly E = tgt_a tgt_b (the two-point basis)."""
     port, _ = problems
     _, tgt, _ = inputs
-    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt))
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt), "efg")
     P, _ = fused._fill(fused.efg_planes(efg).unbind(1), torch.ones(_B),
-                       rk=False)
+                       rk=False, basis="efg")
     assert torch.equal(torch.complex(*P), efg[:, 0])

@@ -9,14 +9,18 @@ Workload: view 0, seed 0, 2 hypotheses (2 x the problem's roots paths).
 The kernel is built without FMA contraction and track_plain writes out
 every product and sum in the kernel's order, so the two agree bit for bit:
 x, flags and step counts must be equal, for both solve programs, for every
-step variant's build, and for segmented tracking against one launch
-(under the predictor handoff, which restarts at every launch, against
-track_plain over the same segments).  The kernel's solve and replay are
-also held alone (hc_solve_replay) to their plain twins.
+variant's build (the step variants, the RK stages' 2-term split of
+"split3_rk2" alone and with each replaying variant, the basis "abc"), and
+for segmented tracking against one launch (under the predictor handoff,
+which restarts at every launch, against track_plain over the same
+segments).  The kernel's solve and replay are also held alone
+(hc_solve_replay) to their plain twins; the default build's ptxas line is
+pinned; eval_structure "gathered" and "merged" launch the default build.
 """
 
 import dataclasses
 import os
+import re
 
 import pytest
 import torch
@@ -49,6 +53,8 @@ def setup():
     tgt = ransac.build_target_params(view.edge_locations, view.edge_tangents,
                                      samples)
     dev = torch.device("cuda")
+    _kernels.build_hc_track([dataclasses.replace(cfg.hc, **k)
+                             for k in _VARIANTS.values()])
     T = port.num_tracks
     tgt_d = torch.as_tensor(tgt, device=dev).repeat_interleave(T, dim=0)
     x0 = torch.as_tensor(port.start_sols, device=dev).repeat(_H, 1)
@@ -108,7 +114,7 @@ def test_cuda_kernel_resumes_bit_exactly(setup):
     c = fused.FusedConstants.build(port)
     plan = torch.as_tensor(c.kernel_plan(), device=x0.device)
     perm = torch.as_tensor(c.perm, dtype=torch.long, device=x0.device)
-    efg = fused.build_pair_coefs(port, tgt)
+    efg = fused.build_pair_coefs(port, tgt, hc.pair_coef_basis)
     x = x0[:, perm].contiguous()
 
     def fresh():
@@ -137,7 +143,9 @@ def test_cuda_wrapper_takes_schedule_plan(setup):
     x = x0[:, perm].contiguous()
     fl = fused.init_flags(cfg.hc, x.shape[0], x.device)
     before = _kernels.hc_track.launches
-    _kernels.hc_track(x, x.clone(), fl, fused.build_pair_coefs(port, tgt),
+    _kernels.hc_track(x, x.clone(), fl,
+                      fused.build_pair_coefs(port, tgt,
+                                             cfg.hc.pair_coef_basis),
                       plan, 2, cfg.hc)
     torch.cuda.synchronize()
     assert _kernels.hc_track.launches == before + 1
@@ -149,7 +157,7 @@ def test_cuda_wrapper_checks_inputs(setup):
     cfg, port, x0, tgt = setup
     c = fused.FusedConstants.build(port)
     plan = torch.as_tensor(c.kernel_plan(), device=x0.device)
-    efg = fused.build_pair_coefs(port, tgt)
+    efg = fused.build_pair_coefs(port, tgt, cfg.hc.pair_coef_basis)
     fl = fused.init_flags(cfg.hc, x0.shape[0], x0.device)
     with pytest.raises(ValueError, match="contiguous"):
         _kernels.hc_track(x0.t().contiguous().t(), x0.clone(), fl, efg, plan,
@@ -162,10 +170,23 @@ def test_cuda_wrapper_checks_inputs(setup):
 _VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
              "cjr1": dict(corrector_jacobian_reuse=1),
              "cjr2": dict(corrector_jacobian_reuse=2),
-             "cph": dict(predictor_handoff=True),
+             "cph": dict(predictor_handoff=True, tile=1),
              "rkj": dict(rk_jacobian_reuse=True),
              "cjr2-cph": dict(corrector_jacobian_reuse=2,
-                              predictor_handoff=True)}
+                              predictor_handoff=True, tile=1),
+             "split2": dict(eval_precision="split3_rk2"),
+             "abc": dict(pair_coef_basis="abc"),
+             # The split's rhs-only assembly in a replay: the handoff's
+             # stage 1 and the frozen RK stages; and beside the
+             # corrector's replays, which stay FP32.
+             "cph-split2": dict(predictor_handoff=True, tile=1,
+                                eval_precision="split3_rk2"),
+             "rkj-split2": dict(rk_jacobian_reuse=True,
+                                eval_precision="split3_rk2"),
+             "cjr2-split2": dict(corrector_jacobian_reuse=2,
+                                 eval_precision="split3_rk2"),
+             "rk2-abc-split2": dict(predictor="rk2", pair_coef_basis="abc",
+                                    eval_precision="split3_rk2")}
 
 
 @pytest.mark.gpu
@@ -255,5 +276,52 @@ def test_cuda_rkj_refuses_a_condensed_plan(setup):
     with pytest.raises(ValueError, match="schedule"):
         _kernels.hc_track(x, x.clone(), fused.init_flags(hc, x.shape[0],
                                                         x.device),
-                          fused.build_pair_coefs(port, tgt), plan, 2, hc)
+                          fused.build_pair_coefs(port, tgt,
+                                                 hc.pair_coef_basis),
+                          plan, 2, hc)
     assert _kernels.hc_track.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("structure", ["gathered", "merged"])
+def test_cuda_structures_launch_the_default_build(setup, structure):
+    """The evaluation structures are one function here: each launches the
+    default build, and its result is the default's bit for bit."""
+    cfg, port, x0, tgt = setup
+    T = port.num_tracks
+    hc = dataclasses.replace(cfg.hc, eval_structure=structure)
+    assert _kernels.hc_track_label(hc) == _kernels.hc_track_label(cfg.hc)
+    before = _kernels.hc_track.launches
+    k = fused.make_track_fn(port, hc)(x0[:T], tgt[:T])
+    assert _kernels.hc_track.launches == before + 1
+    ref = fused.make_track_fn(port, cfg.hc)(x0[:T], tgt[:T])
+    torch.cuda.synchronize()
+    _assert_same(k, ref)
+
+
+def _resources(log, entry):
+    """(registers, static shared bytes, spill stores, spill loads) that
+    ptxas -v reported for the kernel entry whose name holds ``entry``."""
+    out, on, spills = None, False, [None, None]
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            on = entry in line
+        elif on and "spill stores" in line:
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+        elif on and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out = (regs, int(smem.group(1)) if smem else 0, *spills)
+    return out
+
+
+@pytest.mark.gpu
+def test_cuda_default_build_resources(setup, tmp_path, monkeypatch):
+    """The default build compiles as before the variants: 96 registers,
+    39,360 bytes of static shared memory, no spills (a fresh build, so
+    that ptxas reports it)."""
+    monkeypatch.setattr(_kernels, "BUILD_DIR", str(tmp_path))
+    job = _kernels._hc_track_job(config.HCConfig())
+    _kernels.build([job])
+    assert _resources(_kernels.build_logs[job[1]], "hc_track_kernel") == \
+        (96, 39360, 0, 0)

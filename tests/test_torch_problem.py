@@ -108,10 +108,10 @@ def test_kernel_plan_header(constants):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("solver", "dense"), ("pair_coef_basis", "abc"), ("predictor", "rk5"),
-    ("eval_structure", "merged"), ("eval_structure", "gathered"),
+    ("solver", "dense"), ("pair_coef_basis", "ab"), ("predictor", "rk5"),
+    ("eval_structure", "dense"), ("predictor", "euler"),
     ("backend", "xla"), ("backend", "p2c"),
-    ("eval_precision", "split3_rk2"), ("corrector_jacobian_reuse", 3),
+    ("eval_precision", "bf16"), ("corrector_jacobian_reuse", 3),
     ("truncate_paths", False)])
 def test_non_shipped_config_rejected(cfg, knob, value):
     bad = dataclasses.replace(cfg, hc=dataclasses.replace(cfg.hc,
@@ -140,16 +140,43 @@ def test_shipped_config_accepted(cfg):
         config.check_shipped(bad)
 
 
+def test_handoff_needs_tile_one(cfg):
+    """The JAX kernel decides the handoff per tile of hc.tile paths, the
+    port per path: only tile 1 is the same function (shown on the JAX
+    kernel in tests/test_torch_variants_handoff.py)."""
+    for tile in (128, 32):
+        bad = dataclasses.replace(cfg, hc=dataclasses.replace(
+            cfg.hc, predictor_handoff=True, tile=tile))
+        with pytest.raises(ValueError, match="per tile"):
+            config.check_shipped(bad)
+    config.check_shipped(dataclasses.replace(cfg, hc=dataclasses.replace(
+        cfg.hc, predictor_handoff=True, tile=1)))
+
+
+_EVAL_VARIANTS = [dict(eval_precision="split3_rk2"),
+                  dict(pair_coef_basis="abc"),
+                  dict(eval_structure="gathered"),
+                  dict(eval_structure="merged")]
+_STEP_VARIANTS = [dict(predictor="rk2"), dict(predictor="rk3"),
+                  dict(corrector_jacobian_reuse=1),
+                  dict(corrector_jacobian_reuse=2),
+                  dict(predictor_handoff=True, tile=1),
+                  dict(rk_jacobian_reuse=True)]
+
+
 @pytest.mark.parametrize("knobs", [
-    dict(predictor="rk2"), dict(predictor="rk3"),
-    dict(corrector_jacobian_reuse=1), dict(corrector_jacobian_reuse=2),
-    dict(predictor_handoff=True), dict(rk_jacobian_reuse=True),
-    dict(corrector_jacobian_reuse=2, predictor_handoff=True),
+    *_STEP_VARIANTS,
+    dict(corrector_jacobian_reuse=2, predictor_handoff=True, tile=1),
     dict(corrector_jacobian_reuse=1, predictor="rk3"),
-    dict(eval_precision="split3"), dict(eval_precision="highest")],
+    dict(eval_precision="split3"), dict(eval_precision="highest"),
+    *_EVAL_VARIANTS,
+    *({**e, **v} for e in _EVAL_VARIANTS for v in _STEP_VARIANTS),
+    dict(eval_precision="split3_rk2", pair_coef_basis="abc",
+         eval_structure="merged")],
     ids=lambda k: ",".join(f"{a}={v}" for a, v in k.items()))
 def test_step_variants_accepted(cfg, knobs):
     """The step variants, alone and in the combinations the JAX kernel
-    takes, and the evaluation precisions that compute the FP32 function."""
+    takes, the evaluation precisions that compute the FP32 function, and
+    the evaluation variants, alone and with each step variant."""
     config.check_shipped(dataclasses.replace(
         cfg, hc=dataclasses.replace(cfg.hc, **knobs)))

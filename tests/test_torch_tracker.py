@@ -101,17 +101,17 @@ def setup():
     return cfg, port, jp, c, run, tgt_all
 
 
-def _variant_setup(setup, tile, **knobs):
-    """setup's tuple for a step variant of the HC config: its constants
-    (the schedule program under rk_jacobian_reuse) and the JAX kernel built
-    with that config at ``tile`` paths per tile."""
+def _variant_setup(setup, jax_tile, **knobs):
+    """setup's tuple for a variant of the HC config: its constants (the
+    schedule program under rk_jacobian_reuse) and the JAX kernel built
+    with that config at ``jax_tile`` paths per tile."""
     cfg, port, jp, _, _, tgt_all = setup
     hc = dataclasses.replace(cfg.hc, **knobs)
     solver = fused.solver_of(hc)
     c = fused.FusedConstants.build(port, solver=solver)
     jc = jfused.FusedConstants.build(jp, solver=solver)
     assert np.array_equal(c.perm, np.asarray(jc.perm))
-    run = jax.jit(jfused.build_kernel_caller(jc, jp, hc, tile, _STEPS,
+    run = jax.jit(jfused.build_kernel_caller(jc, jp, hc, jax_tile, _STEPS,
                                              interpret=True))
     return dataclasses.replace(cfg, hc=hc), port, jp, c, run, tgt_all
 
@@ -144,7 +144,8 @@ def _compare_window(setup, x, xl, flags, tgt, excuse=None):
     hc = cfg.hc
 
     def plain(x, tgt):
-        efg = fused.build_pair_coefs(port, torch.as_tensor(tgt))
+        efg = fused.build_pair_coefs(port, torch.as_tensor(tgt),
+                                     hc.pair_coef_basis)
         gx, _, gfl = fused.track_plain(c, hc, torch.as_tensor(x),
                                        torch.as_tensor(xl),
                                        torch.as_tensor(flags), efg,
@@ -195,7 +196,8 @@ def end_window(setup):
     then the active paths closest to t = 1."""
     cfg, port, _, c, _, tgt_all = setup
     hc = cfg.hc
-    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all))
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all),
+                                 hc.pair_coef_basis)
     perm = torch.as_tensor(c.perm, dtype=torch.long)
     x = torch.as_tensor(port.start_sols)[:, perm].contiguous()
     state = fused.track_plain(c, hc, x, x, fused.init_flags(hc, x.shape[0]),
@@ -263,7 +265,8 @@ def test_track_plain_resumes(setup):
     hc = dataclasses.replace(cfg.hc, max_steps=7)
     perm = torch.as_tensor(c.perm, dtype=torch.long)
     x = torch.as_tensor(np.asarray(port.start_sols)[:_TR])[:, perm].contiguous()
-    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]))
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]),
+                                 hc.pair_coef_basis)
     fl = fused.init_flags(hc, _TR)
     one = fused.track_plain(c, hc, x, x, fl, efg, niter=8)
     a = fused.track_plain(c, hc, x, x, fl, efg, niter=3)
@@ -276,7 +279,8 @@ def test_kernel_wrapper_refuses_cpu_tensors(setup):
     """The kernel binding never runs a plain fallback: CPU tensors raise."""
     cfg, port, _, c, _, tgt_all = setup
     x = torch.as_tensor(np.asarray(port.start_sols)[:_TR])
-    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]))
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]),
+                                 cfg.hc.pair_coef_basis)
     with pytest.raises(ValueError, match="CUDA"):
         _kernels.hc_track(x, x.clone(), fused.init_flags(cfg.hc, _TR), efg,
                           torch.as_tensor(c.kernel_plan()), 4, cfg.hc)
@@ -334,7 +338,8 @@ def test_reduced_and_schedule_programs_agree(setup, schedule_setup):
     cfg, port, _, c_r, _, tgt_all = setup
     c_s = schedule_setup[3]
     hc = cfg.hc
-    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]))
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:_TR]),
+                                 hc.pair_coef_basis)
     x0 = np.asarray(port.start_sols)[:_TR]
     fl = fused.init_flags(hc, _TR)
 

@@ -4,9 +4,13 @@ elimination on the fresh -Ht, where that step did not roll back.
 
 The JAX kernel decides the handoff per tile (every lane of the tile
 advanced); the port's counterpart of a tile is one path, so it decides
-per path.  That is the JAX kernel's own function at tile = 1, which
-interpret mode runs, so the JAX kernel is built at tile = 1 here: on the
-first 8 start roots, and on tests/test_torch_tracker.py's end window.  The
+per path.  That is the JAX kernel's own function at tile = 1 only, so
+check_shipped refuses the handoff at any other HCConfig.tile, every
+configuration here sets tile = 1, and the JAX kernel is built at tile = 1:
+on the first 8 start roots, and on tests/test_torch_tracker.py's end
+window.  At a tile of 32 (the end window as one tile) the JAX kernel ends
+some flag-stable path otherwise than at tile 1, where the port agrees with
+tile 1: the refusal's reason, shown.  The
 rule is that file's, with one exemption, proved per path: a flag-stable
 path whose flags differ is dropped from the comparison only if some system
 it solves in the window has a float64 condition number above 2^24, where
@@ -37,7 +41,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     segmented,
 )
 
-_CPH = dict(predictor_handoff=True)
+_CPH = dict(predictor_handoff=True, tile=1)
 _START_PATHS = 8
 _SINGULAR = 2.0 ** 24   # 1 / float32's unit roundoff
 
@@ -76,7 +80,8 @@ def _singular_in_window(cph, x, xl, fl, tgt, monkeypatch):
             fused.track_plain(
                 c, cfg.hc, torch.as_tensor(x[i:i + 1]),
                 torch.as_tensor(xl[i:i + 1]), torch.as_tensor(fl[i:i + 1]),
-                fused.build_pair_coefs(port, torch.as_tensor(tgt[i:i + 1])),
+                fused.build_pair_coefs(port, torch.as_tensor(tgt[i:i + 1]),
+                                       cfg.hc.pair_coef_basis),
                 niter=ttt._STEPS)
         finally:
             monkeypatch.setattr(fused, "factor_plain", factor)
@@ -85,6 +90,28 @@ def _singular_in_window(cph, x, xl, fl, tgt, monkeypatch):
         return bool(cond > _SINGULAR)
 
     return excuse
+
+
+@pytest.fixture(scope="module")
+def cph_whole_tile(setup):  # noqa: F811
+    """The JAX kernel under CPH at a tile of the window's 32 paths."""
+    return ttt._variant_setup(setup, ttt._TR, **_CPH)
+
+
+def test_handoff_is_decided_per_tile(cph, cph_whole_tile, end_window,  # noqa: F811
+                                     monkeypatch):
+    """The end window at tile 32 is one tile, so a path's stage 1 replays
+    only after a step in which no path of the 32 rolled back: some
+    flag-stable path then ends its window with other flags than at tile
+    1, whose flags the port's match (the window rule)."""
+    x, xl, fl, tgt = end_window
+    stable, _, _ = ttt._compare_window(
+        cph, x, xl, fl, tgt,
+        excuse=_singular_in_window(cph, x, xl, fl, tgt, monkeypatch))
+    _, _, one = ttt._jax_steps(cph, x, xl, fl, tgt, ttt._STEPS)
+    _, _, whole = ttt._jax_steps(cph_whole_tile, x, xl, fl, tgt, ttt._STEPS)
+    moved = stable & (one != whole).any(axis=1)
+    assert moved.any()
 
 
 def test_end_window_matches_jax_kernel(cph, end_window, monkeypatch):  # noqa: F811
@@ -111,7 +138,7 @@ def _track_plain_by_segments(problem, hc, x0, tgt):
     perm = torch.as_tensor(c.perm, dtype=torch.long)
     x = x0[:, perm].contiguous()
     xl, fl = x.clone(), fused.init_flags(hc, x.shape[0])
-    efg = fused.build_pair_coefs(problem, tgt)
+    efg = fused.build_pair_coefs(problem, tgt, hc.pair_coef_basis)
     budget = hc.max_steps + 1
     for lo in range(0, budget, hc.segment_steps):
         x, xl, fl = fused.track_plain(

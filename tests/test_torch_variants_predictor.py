@@ -89,7 +89,8 @@ def test_rkj_refuses_the_condensed_program(setup):  # noqa: F811
     hc = dataclasses.replace(cfg.hc, rk_jacobian_reuse=True)
     assert fused.make_plain_track_fn(port, hc).constants.solver == "schedule"
     x = torch.as_tensor(np.asarray(port.start_sols)[:2][:, c_reduced.perm])
-    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:2]))
+    efg = fused.build_pair_coefs(port, torch.as_tensor(tgt_all[:2]),
+                                 hc.pair_coef_basis)
     with pytest.raises(ValueError, match="schedule"):
         fused.track_plain(c_reduced, hc, x, x, fused.init_flags(hc, 2), efg,
                           niter=1)

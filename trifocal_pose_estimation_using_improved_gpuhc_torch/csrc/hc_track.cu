@@ -29,7 +29,16 @@
 //    _reduce_resolve_rhs, which replay a kept elimination on a new rhs --
 //    corrector iterations from the cjr-th on (modified Newton), RK stage 1
 //    after a step that did not roll back (the corrector -> predictor
-//    handoff), RK stages 2-4 (frozen-Jacobian stages, schedule program).
+//    handoff), RK stages 2-4 (frozen-Jacobian stages, schedule program);
+//  * HC_SPLIT2: eval_precision "split3_rk2", where the JAX kernel's RK-stage
+//    evaluations take every constant matmul's input as two bf16 terms
+//    h + l1 (about 16 significant bits; _sdot2/_kdot2 there): here the
+//    point, the quadratic and cubic monomials pass through r2() and each
+//    entry sums its terms' h and l1 apart.  The corrector stays FP32;
+//  * HC_ABC: pair_coef_basis "abc", P(t) = (A t + B) t + C (its fill_P's
+//    abc branch) in place of the two-point basis.
+// eval_structure "gathered" and "merged" are other matmul forms of the same
+// evaluation on the TPU and run the build of their other knobs.
 // A replaying build keeps the elimination where the forward pass leaves
 // it: the pivot rows in the system itself (no later step writes a pivot
 // row) and the pivots in s.piv, plus each candidate's multiplier in a
@@ -59,6 +68,7 @@
 // -fmad=false): every product and sum rounds once, in the order track_plain
 // writes it out, so the kernel and its twin agree bit for bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,6 +85,12 @@
 #ifndef HC_RKJ
 #define HC_RKJ 0
 #endif
+#ifndef HC_SPLIT2
+#define HC_SPLIT2 0
+#endif
+#ifndef HC_ABC
+#define HC_ABC 0
+#endif
 
 namespace {
 
@@ -90,6 +106,7 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int ORDER = HC_ORDER;
 constexpr bool CJR = HC_CJR != 0, CPH = HC_CPH != 0, RKJ = HC_RKJ != 0;
 constexpr bool REPLAY = CJR || CPH || RKJ;
+constexpr bool SPLIT2 = HC_SPLIT2 != 0, ABC = HC_ABC != 0;
 static_assert(ORDER == 2 || ORDER == 3 || ORDER == 4, "HC_ORDER is 2, 3 or 4");
 static_assert(!(CPH && RKJ), "the handoff and frozen RK stages exclude each other");
 
@@ -128,13 +145,59 @@ __device__ __forceinline__ float2 shfl2(float2 v, int src) {
   return make_float2(__shfl_sync(FULL, v.x, src), __shfl_sync(FULL, v.y, src));
 }
 
+// v rounded to bf16 (to nearest, ties to even) and back.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The 2-term split's value h + l1: h = bf16(v), l1 = bf16(v - h).
+__device__ __forceinline__ float r2(float v) {
+  const float h = round_bf16(v);
+  return h + round_bf16(v - h);
+}
+
+__device__ __forceinline__ float2 r2(float2 v) {
+  return make_float2(r2(v.x), r2(v.y));
+}
+
+// acc += coef * v, or under the split (S2) hi += coef * h(v) and
+// lo += coef * l1(v), summed apart and added at the end.
+template <bool S2>
+__device__ __forceinline__ void accumulate(float2& hi, float2& lo, float coef,
+                                           float2 v) {
+  if constexpr (S2) {
+    const float hx = round_bf16(v.x), hy = round_bf16(v.y);
+    hi.x += coef * hx;
+    hi.y += coef * hy;
+    lo.x += coef * round_bf16(v.x - hx);
+    lo.y += coef * round_bf16(v.y - hy);
+  } else {
+    hi.x += coef * v.x;
+    hi.y += coef * v.y;
+  }
+}
+
+template <bool S2>
+__device__ __forceinline__ float2 total(float2 hi, float2 lo) {
+  if constexpr (S2) return make_float2(hi.x + lo.x, hi.y + lo.y);
+  return hi;
+}
+
+// A monomial as a constant matmul's input: itself, or its split's value.
+template <bool S2>
+__device__ __forceinline__ float2 operand(float2 v) {
+  if constexpr (S2) return r2(v);
+  return v;
+}
+
 // This warp's multiplier area in dynamic shared memory (replaying builds).
 __device__ __forceinline__ float2* keep_area(int warp) {
   extern __shared__ float2 keep_all[];
   return keep_all + warp * FSLOTS;
 }
 
-// P(t) = t^2 E + t(1-t) F + (1-t)^2 G per pair (exactly E at t = 1); the rhs
+// P(t) = t^2 E + t(1-t) F + (1-t)^2 G per pair (exactly E at t = 1), or
+// under ABC (A t + B) t + C with (A, B, C) in the (E, F, G) slots; the rhs
 // half takes dP/dt for RK stages and P itself for the corrector.
 __device__ void fill(WarpSmem& s, const float2 (&e)[2], const float2 (&f)[2],
                      const float2 (&g)[2], float t, bool rk, int q_n,
@@ -145,36 +208,47 @@ __device__ void fill(WarpSmem& s, const float2 (&e)[2], const float2 (&f)[2],
   for (int j = 0; j < 2; ++j) {
     const int q = lane + 32 * j;
     if (q < q_n) {
-      float2 pq = make_float2(tt * e[j].x + (tv * f[j].x + vv * g[j].x),
-                              tt * e[j].y + (tv * f[j].y + vv * g[j].y));
-      s.p[q] = pq;
-      s.r[q] = rk ? make_float2(t2 * e[j].x + (a * f[j].x - b * g[j].x),
-                                t2 * e[j].y + (a * f[j].y - b * g[j].y))
-                  : pq;
+      if constexpr (ABC) {
+        const float2 pq = make_float2((e[j].x * t + f[j].x) * t + g[j].x,
+                                      (e[j].y * t + f[j].y) * t + g[j].y);
+        s.p[q] = pq;
+        s.r[q] = rk ? make_float2((2.0f * e[j].x) * t + f[j].x,
+                                  (2.0f * e[j].y) * t + f[j].y)
+                    : pq;
+      } else {
+        float2 pq = make_float2(tt * e[j].x + (tv * f[j].x + vv * g[j].x),
+                                tt * e[j].y + (tv * f[j].y + vv * g[j].y));
+        s.p[q] = pq;
+        s.r[q] = rk ? make_float2(t2 * e[j].x + (a * f[j].x - b * g[j].x),
+                                  t2 * e[j].y + (a * f[j].y - b * g[j].y))
+                    : pq;
+      }
     }
   }
 }
 
-// Row `lane`'s rhs at xe: its terms (coef, q, a, b, c) summed in order.
+// Row `lane`'s rhs at xe: its terms (coef, q, a, b, c) summed in order (S2:
+// the 2-term split, see accumulate).
+template <bool S2>
 __device__ __forceinline__ float2 rhs_row(const WarpSmem& s,
                                           const int* __restrict__ plan,
                                           int lane) {
   const int* rhs_off = plan + plan[H_RHSOFF];
   const int* rhs_t = plan + plan[H_RHST];
-  float2 acc = make_float2(0.f, 0.f);
+  float2 acc = make_float2(0.f, 0.f), lo = make_float2(0.f, 0.f);
   for (int k = rhs_off[lane]; k < rhs_off[lane + 1]; ++k) {
     const int* tm = rhs_t + 5 * k;
     const float coef = (float)tm[0];
-    const float2 x3 = cmul(cmul(s.xe[tm[2]], s.xe[tm[3]]), s.xe[tm[4]]);
-    const float2 px = cmul(s.r[tm[1]], x3);
-    acc.x += coef * px.x;
-    acc.y += coef * px.y;
+    const float2 x3 = operand<S2>(
+        cmul(cmul(s.xe[tm[2]], s.xe[tm[3]]), s.xe[tm[4]]));
+    accumulate<S2>(acc, lo, coef, cmul(s.r[tm[1]], x3));
   }
-  return acc;
+  return total<S2>(acc, lo);
 }
 
 // Augmented system at xe: lane e evaluates equation row e from its term
 // lists -- Hx nonzeros (col, coef, q, a, b) and the rhs (coef, q, a, b, c).
+template <bool S2 = false>
 __device__ void assemble(WarpSmem& s, const int* __restrict__ plan,
                          bool want_h, int lane) {
   for (int row = 0; row < NV; ++row) s.m[row * LD + lane] = make_float2(0.f, 0.f);
@@ -186,18 +260,17 @@ __device__ void assemble(WarpSmem& s, const int* __restrict__ plan,
     const int end = hx_off[lane + 1];
     while (i < end) {
       const int col = hx_t[5 * i];
-      float2 acc = make_float2(0.f, 0.f);
+      float2 acc = make_float2(0.f, 0.f), lo = make_float2(0.f, 0.f);
       while (i < end && hx_t[5 * i] == col) {
         const int* tm = hx_t + 5 * i;
         const float coef = (float)tm[1];
-        const float2 px = cmul(s.p[tm[2]], cmul(s.xe[tm[3]], s.xe[tm[4]]));
-        acc.x += coef * px.x;
-        acc.y += coef * px.y;
+        const float2 x2 = operand<S2>(cmul(s.xe[tm[3]], s.xe[tm[4]]));
+        accumulate<S2>(acc, lo, coef, cmul(s.p[tm[2]], x2));
         ++i;
       }
-      s.m[lane * LD + col] = acc;
+      s.m[lane * LD + col] = total<S2>(acc, lo);
     }
-    const float2 acc = rhs_row(s, plan, lane);
+    const float2 acc = rhs_row<S2>(s, plan, lane);
     s.m[lane * LD + RHS] = want_h ? acc : make_float2(-acc.x, -acc.y);
   }
   __syncwarp();
@@ -205,10 +278,11 @@ __device__ void assemble(WarpSmem& s, const int* __restrict__ plan,
 
 // The rhs column alone (a replay's input; the rest of s.m is the kept
 // elimination).
+template <bool S2 = false>
 __device__ void assemble_rhs(WarpSmem& s, const int* __restrict__ plan,
                              bool want_h, int lane) {
   if (lane < NV) {
-    const float2 acc = rhs_row(s, plan, lane);
+    const float2 acc = rhs_row<S2>(s, plan, lane);
     s.m[lane * LD + RHS] = want_h ? acc : make_float2(-acc.x, -acc.y);
   }
   __syncwarp();
@@ -362,8 +436,11 @@ __device__ float2 replay(WarpSmem& s, const int* __restrict__ plan,
   return backsub(s, plan, lane);
 }
 
+// The evaluation point (S2: its split's value; the homogeneous 1 stays 1).
+template <bool S2 = false>
 __device__ __forceinline__ void set_point(WarpSmem& s, float2 x, int lane) {
-  s.xe[lane] = lane < NV ? x : make_float2(lane == NV ? 1.0f : 0.0f, 0.0f);
+  s.xe[lane] = lane < NV ? operand<S2>(x)
+                         : make_float2(lane == NV ? 1.0f : 0.0f, 0.0f);
   __syncwarp();
 }
 
@@ -408,14 +485,15 @@ hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
   // kept across launches, as the JAX kernel resets its flag at each launch.
   bool handoff = false;
   // RK stage k >= 2 at point xp: a full solve, or (RKJ) stage 1's
-  // elimination replayed on the -Ht there.
+  // elimination replayed on the -Ht there.  Every RK-stage evaluation runs
+  // under the split of SPLIT2.
   auto stage = [&](float2 xp) {
-    set_point(s, xp, lane);
+    set_point<SPLIT2>(s, xp, lane);
     if constexpr (RKJ) {
-      assemble_rhs(s, plan, false, lane);
+      assemble_rhs<SPLIT2>(s, plan, false, lane);
       return replay(s, plan, keep, lane);
     } else {
-      assemble(s, plan, false, lane);
+      assemble<SPLIT2>(s, plan, false, lane);
       return solve<REPLAY>(s, plan, keep, lane);
     }
   };
@@ -441,13 +519,13 @@ hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
 
     // Predictor: RK4, or Kutta's rule (ORDER 3) or the midpoint rule (2).
     fill(s, e, f, g, t, true, q_n, lane);
-    set_point(s, xv, lane);
+    set_point<SPLIT2>(s, xv, lane);
     float2 k1;
     if (CPH && handoff) {
-      assemble_rhs(s, plan, false, lane);
+      assemble_rhs<SPLIT2>(s, plan, false, lane);
       k1 = replay(s, plan, keep, lane);
     } else {
-      assemble(s, plan, false, lane);
+      assemble<SPLIT2>(s, plan, false, lane);
       k1 = solve<REPLAY>(s, plan, keep, lane);
     }
     fill(s, e, f, g, tb, true, q_n, lane);
@@ -557,9 +635,9 @@ extern "C" int hc_track_launch(void* x, void* xl, void* flags, const void* efg,
                                int mcs, int steps_inc, int truncate,
                                float ez_factor, float t_eps, float tol_sq,
                                float inf_sq, int order, int cjr, int cph,
-                               int rkj, void* stream) {
+                               int rkj, int split2, int abc, void* stream) {
   if (order != ORDER || (cjr > 0) != CJR || (cph != 0) != CPH ||
-      (rkj != 0) != RKJ)
+      (rkj != 0) != RKJ || (split2 != 0) != SPLIT2 || (abc != 0) != ABC)
     return -1;
   if (n_paths <= 0) return 0;
   Params prm{niter, mcs, steps_inc, truncate, ez_factor, t_eps, tol_sq, inf_sq,

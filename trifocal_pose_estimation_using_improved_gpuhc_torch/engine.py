@@ -11,9 +11,12 @@ the hypotheses in chunks and stops at the first chunk that finds a pose.
 
 It runs the configurations ``utils/config.check_shipped`` accepts: either
 solve program, and the step variants predictor "rk4" (the default), "rk3"
-or "rk2", ``corrector_jacobian_reuse`` 1 or 2, ``predictor_handoff`` and
-``rk_jacobian_reuse`` (which runs the schedule program), the last two not
-together; each variant is a build of the tracker kernel of its own.
+or "rk2", ``corrector_jacobian_reuse`` 1 or 2, ``predictor_handoff`` (at
+``tile`` 1) and ``rk_jacobian_reuse`` (which runs the schedule program),
+the last two not together, and the evaluation variants eval_precision
+"split3_rk2", pair_coef_basis "abc" and eval_structure "gathered" or
+"merged", with any of those; each variant of the step or of the first two
+is a build of the tracker kernel of its own.
 
 The engine runs on the card (``cuda:0``) unless the caller asks for
 another device, and never moves work elsewhere.

@@ -8,10 +8,12 @@ several at once, one nvcc each, all started together.  Nothing here runs at
 import: the CPU tests import this module without a compiler or a card.
 
 ``hc_track`` launches ``csrc/hc_track.cu`` on PyTorch's current stream and
-counts its launches in ``hc_track.launches``.  Its step variants (predictor
-order, and the kept-elimination replays of corrector_jacobian_reuse,
-predictor_handoff and rk_jacobian_reuse) are compile-time choices: one
-library per variant, built when a configuration first needs it.
+counts its launches in ``hc_track.launches``.  Its variants (predictor
+order, the kept-elimination replays of corrector_jacobian_reuse,
+predictor_handoff and rk_jacobian_reuse, the RK stages' 2-term split of
+eval_precision "split3_rk2" and the pair basis "abc") are compile-time
+choices: one library per variant, built when a configuration first needs
+it.  eval_structure picks no build: its values are one function here.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     HCConfig,
+    check_hc,
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,32 +114,34 @@ def load(name: str, label: str = "", defines: Sequence[str] = ()
 _ORDERS = {"rk4": 4, "rk3": 3, "rk2": 2}
 
 
-def hc_track_variant(cfg: HCConfig) -> Tuple[int, int, int, int]:
+_FLAGS = ("cjr", "cph", "rkj", "split2", "abc")
+
+
+def hc_track_variant(cfg: HCConfig) -> Tuple[int, ...]:
     """The compile-time variant a configuration runs: (predictor order,
-    corrector replay, predictor handoff, frozen RK stages), each 0/1 but
-    the order; raises ValueError for one the kernel does not build."""
-    if cfg.predictor not in _ORDERS:
-        raise ValueError(f"unknown predictor {cfg.predictor!r}")
-    if cfg.predictor_handoff and cfg.rk_jacobian_reuse:
-        raise ValueError("predictor_handoff and rk_jacobian_reuse cannot be "
-                         "combined")
+    corrector replay, predictor handoff, frozen RK stages, 2-term RK
+    split, basis "abc"), each 0/1 but the order; raises ValueError for one
+    the kernel does not build."""
+    check_hc(cfg)
     return (_ORDERS[cfg.predictor], int(cfg.corrector_jacobian_reuse > 0),
-            int(bool(cfg.predictor_handoff)), int(bool(cfg.rk_jacobian_reuse)))
+            int(bool(cfg.predictor_handoff)), int(bool(cfg.rk_jacobian_reuse)),
+            int(cfg.eval_precision == "split3_rk2"),
+            int(cfg.pair_coef_basis == "abc"))
 
 
 def hc_track_label(cfg: HCConfig) -> str:
     """The variant's library label, e.g. "hc_track.rk4" (the default) or
-    "hc_track.rk3-cjr"."""
+    "hc_track.rk3-cjr-split2"."""
     v = hc_track_variant(cfg)
     return f"hc_track.rk{v[0]}" + "".join(
-        f"-{n}" for n, on in zip(("cjr", "cph", "rkj"), v[1:]) if on)
+        f"-{n}" for n, on in zip(_FLAGS, v[1:]) if on)
 
 
 def _hc_track_job(cfg: HCConfig):
-    order, cjr, cph, rkj = hc_track_variant(cfg)
+    order, *flags = hc_track_variant(cfg)
     return ("hc_track", hc_track_label(cfg),
-            [f"-DHC_ORDER={order}", f"-DHC_CJR={cjr}", f"-DHC_CPH={cph}",
-             f"-DHC_RKJ={rkj}"])
+            [f"-DHC_ORDER={order}"] + [f"-DHC_{n.upper()}={on}"
+                                       for n, on in zip(_FLAGS, flags)])
 
 
 def build_hc_track(cfgs: Sequence[HCConfig]) -> None:
@@ -150,7 +155,7 @@ def _hc_track_lib(cfg: HCConfig) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, i, i, i,
-                       p]
+                       i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -190,7 +195,7 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     devs = {t.device for t in (x, xl, flags, efg, plan)}
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
-    order, _, cph, rkj = hc_track_variant(cfg)
+    order, _, cph, rkj, split2, abc = hc_track_variant(cfg)
     # Header word 3 counts the row-map levels: the schedule program has none.
     if rkj and int(plan[3]) != 0:
         raise ValueError("rk_jacobian_reuse runs the schedule program only")
@@ -203,7 +208,8 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
             int(cfg.steps_to_increase_delta_t), int(bool(cfg.truncate_paths)),
             float(cfg.end_zone_factor), float(cfg.t_converged_eps),
             float(cfg.corrector_tol_sq), float(cfg.infinity_norm_sq),
-            order, int(cfg.corrector_jacobian_reuse), cph, rkj, stream)
+            order, int(cfg.corrector_jacobian_reuse), cph, rkj, split2, abc,
+            stream)
     if err == -1:
         raise RuntimeError(f"{hc_track_label(cfg)} is not the variant its "
                            f"library was built as")

@@ -43,8 +43,13 @@ the pivot rows, which no later step modifies.
 The step variants of the JAX kernel run here too (``_advance``): predictor
 "rk3" or "rk2", and the three users of a kept elimination, which
 ``resolve_plain`` replays on a new right-hand side with the forward pass's
-own update (``corrector_jacobian_reuse``, ``predictor_handoff``,
-``rk_jacobian_reuse``; the last on the schedule program only).
+own update (``corrector_jacobian_reuse``, ``predictor_handoff`` at a tile
+of one path, ``rk_jacobian_reuse``; the last on the schedule program
+only).  So do its evaluation variants: eval_precision "split3_rk2" (the RK
+stages' evaluations at 2-term bfloat16 splits, ``_assemble(split2=True)``)
+and pair_coef_basis "abc" (``build_pair_coefs``, ``_fill``).  Its
+eval_structure "gathered" and "merged" are TPU matmul forms of the one
+evaluation here.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import reduce as re
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import schedule as sched
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     HCConfig,
+    check_hc,
 )
 
 # Flag columns (the reference's 8-row flag layout, batch-first here): t, dt,
@@ -344,29 +350,46 @@ def _schedule_program(schedule: sched.SolveSchedule, pos_of_row):
 # ---------------------------------------------------------------------------
 
 
-def build_pair_coefs(problem: TrifocalProblem, target_params: torch.Tensor
-                     ) -> torch.Tensor:
-    """Per-path pair-product coefficients in the two-point ("efg") basis.
+def build_pair_coefs(problem: TrifocalProblem, target_params: torch.Tensor,
+                     basis: str) -> torch.Tensor:
+    """Per-path pair-product coefficients, (B, P+1) complex64 target
+    parameters -> (B, 3, Q) complex64, in ``HCConfig.pair_coef_basis``.
 
-    P_q(t) = t^2 E + t(1-t) F + (1-t)^2 G with E = tgt_a tgt_b, F = tgt_a
-    s_b + s_a tgt_b, G = s_a s_b (s = the problem's start parameters):
-    exact at t = 1.  target_params (B, P+1) complex64 -> (B, 3, Q)
-    complex64 holding E, F, G."""
+    "efg", the two-point basis: P_q(t) = t^2 E + t(1-t) F + (1-t)^2 G with
+    E = tgt_a tgt_b, F = tgt_a s_b + s_a tgt_b, G = s_a s_b (s = the
+    problem's start parameters): exact at t = 1.
+
+    "abc": P_q(t) = (A t + B) t + C with A = d_a d_b, B = s_a d_b + s_b d_a,
+    C = s_a s_b, d = tgt - s (a float32 difference, as the JAX engine forms
+    it).  Its rounding near t = 1 is absolute, not relative: the JAX
+    package's known floor under the imaginary residues, reproduced."""
     f = problem.factored
     dev = target_params.device
     a = torch.as_tensor(f.pp_a, dtype=torch.long, device=dev)
     b = torch.as_tensor(f.pp_b, dtype=torch.long, device=dev)
     sp = torch.as_tensor(problem.start_params, device=dev)
-    ta, tb = target_params[:, a], target_params[:, b]
     sa, sb = sp[a], sp[b]
-    e_re = ta.real * tb.real - ta.imag * tb.imag
-    e_im = ta.real * tb.imag + ta.imag * tb.real
-    f_re = ta.real * sb.real - ta.imag * sb.imag + sa.real * tb.real \
-        - sa.imag * tb.imag
-    f_im = ta.real * sb.imag + ta.imag * sb.real + sa.real * tb.imag \
-        + sa.imag * tb.real
     g = torch.complex(sa.real * sb.real - sa.imag * sb.imag,
                       sa.real * sb.imag + sa.imag * sb.real)
+    if basis == "efg":
+        ta, tb = target_params[:, a], target_params[:, b]
+        e_re = ta.real * tb.real - ta.imag * tb.imag
+        e_im = ta.real * tb.imag + ta.imag * tb.real
+        f_re = ta.real * sb.real - ta.imag * sb.imag + sa.real * tb.real \
+            - sa.imag * tb.imag
+        f_im = ta.real * sb.imag + ta.imag * sb.real + sa.real * tb.imag \
+            + sa.imag * tb.real
+    elif basis == "abc":
+        d = target_params - sp
+        ta, tb = d[:, a], d[:, b]   # d_a, d_b
+        e_re = ta.real * tb.real - ta.imag * tb.imag
+        e_im = ta.real * tb.imag + ta.imag * tb.real
+        f_re = sa.real * tb.real - sa.imag * tb.imag + sb.real * ta.real \
+            - sb.imag * ta.imag
+        f_im = sa.real * tb.imag + sa.imag * tb.real + sb.real * ta.imag \
+            + sb.imag * ta.real
+    else:
+        raise ValueError(f"unknown pair_coef_basis {basis!r}")
     out = torch.stack([torch.complex(e_re, e_im), torch.complex(f_re, f_im),
                        g.expand_as(ta)], dim=1)
     return out.contiguous()
@@ -470,12 +493,19 @@ def efg_planes(efg: torch.Tensor) -> torch.Tensor:
                       for i in range(3)], dim=1)
 
 
-def _fill(efg, t: torch.Tensor, rk: bool):
+def _fill(efg, t: torch.Tensor, rk: bool, basis: str):
     """Pair products at t for the Hx half and, for the rhs half, their
     t-derivative (RK stages) or the products again (corrector).
-    efg: six (A, Q) planes (E, F, G re/im), t (A,) -> P, R as (re, im)."""
+    efg: six (A, Q) planes (re/im of the basis's three coefficients, see
+    ``build_pair_coefs``), t (A,) -> P, R as (re, im)."""
     er, ei, fr, fi, gr, gi = efg
     t = t[:, None]
+    if basis == "abc":
+        # (A t + B) t + C, and (2 A) t + B, as the JAX kernel writes them.
+        P = ((er * t + fr) * t + gr, (ei * t + fi) * t + gi)
+        if not rk:
+            return P, P
+        return P, ((2.0 * er) * t + fr, (2.0 * ei) * t + fi)
     v = 1.0 - t
     tt, tv, vv = t * t, t * v, v * v
     P = (tt * er + (tv * fr + vv * gr), tt * ei + (tv * fi + vv * gi))
@@ -486,24 +516,52 @@ def _fill(efg, t: torch.Tensor, rk: bool):
     return P, (t2 * er + (a * fr - b * gr), t2 * ei + (a * fi - b * gi))
 
 
-def _assemble(tb: _Tables, x, P, R, want_h: bool, rhs_only: bool = False):
+def _bf16(v: torch.Tensor) -> torch.Tensor:
+    """v rounded to bfloat16 (to nearest, ties to even) and back."""
+    return v.to(torch.bfloat16).to(torch.float32)
+
+
+def _r2(v: torch.Tensor) -> torch.Tensor:
+    """The 2-term split's value h + l1: h = bf16(v), l1 = bf16(v - h)."""
+    h = _bf16(v)
+    return h + _bf16(v - h)
+
+
+def _assemble(tb: _Tables, x, P, R, want_h: bool, rhs_only: bool = False,
+              split2: bool = False):
     """Augmented systems (re, im), each (A, 30, 32), at position-order x
     (re, im): the Hx nonzeros and the rhs, H (corrector) or -Ht (RK
     stages); each entry sums its terms in term-list order.  With
-    ``rhs_only`` (a replay's input) just the rhs, (re, im) each (A, 30)."""
+    ``rhs_only`` (a replay's input) just the rhs, (re, im) each (A, 30).
+
+    ``split2`` is the JAX kernel's RK-stage evaluation under
+    eval_precision "split3_rk2", where every constant matmul takes its
+    input as two bfloat16 terms h + l1: the point's entries, the quadratic
+    and cubic monomials pass through that split (``_r2``), and each entry
+    sums h(v) and l1(v) of its terms' values v apart, then adds the two."""
     xr, xi = x
     A, n = xr.shape[0], tb.c.n
+    if split2:
+        xr, xi = _r2(xr), _r2(xi)
     er = torch.cat([xr, xr.new_ones((A, 1))], dim=1)   # homogeneous slot
     ei = torch.cat([xi, xi.new_zeros((A, 1))], dim=1)
 
-    def sum_terms(coef, q, mono, valid, Z):
-        vr, vi = _cmul(Z[0][:, q], Z[1][:, q], *mono)
+    def fold(coef, vr, vi, valid):
         vr = torch.where(valid, coef * vr, 0.0)
         vi = torch.where(valid, coef * vi, 0.0)
         acc_r = acc_i = torch.zeros_like(vr[..., 0])
         for k in range(vr.shape[-1]):
             acc_r, acc_i = acc_r + vr[..., k], acc_i + vi[..., k]
         return acc_r, acc_i
+
+    def sum_terms(coef, q, mono, valid, Z):
+        if not split2:
+            return fold(coef, *_cmul(Z[0][:, q], Z[1][:, q], *mono), valid)
+        vr, vi = _cmul(Z[0][:, q], Z[1][:, q], *(_r2(m) for m in mono))
+        hr, hi = _bf16(vr), _bf16(vi)
+        ar, ai = fold(coef, hr, hi, valid)
+        br, bi = fold(coef, _bf16(vr - hr), _bf16(vi - hi), valid)
+        return ar + br, ai + bi
 
     x2 = _cmul(er[:, tb.rhs_a], ei[:, tb.rhs_a], er[:, tb.rhs_b],
                ei[:, tb.rhs_b])
@@ -671,14 +729,10 @@ def solver_of(cfg: HCConfig) -> str:
 
 
 def check_variant(cfg: HCConfig, consts: FusedConstants) -> None:
-    """Raise ValueError for a step variant the tracker does not run, or
-    the wrong solve program for it (the trackers take every other knob
-    the kernel has, truncate_paths=False included)."""
-    if cfg.predictor not in ("rk4", "rk3", "rk2"):
-        raise ValueError(f"unknown predictor {cfg.predictor!r}")
-    if cfg.predictor_handoff and cfg.rk_jacobian_reuse:
-        raise ValueError("predictor_handoff and rk_jacobian_reuse cannot be "
-                         "combined")
+    """Raise ValueError for a variant the tracker does not run, or the
+    wrong solve program for it (the trackers take every other knob the
+    kernel has, truncate_paths=False included)."""
+    check_hc(cfg)
     if cfg.rk_jacobian_reuse and consts.solver != "schedule":
         raise ValueError("rk_jacobian_reuse runs the schedule program only")
 
@@ -696,9 +750,11 @@ def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
     only (a finished path's state is final, as in the kernel).  ``work``,
     if given, counts what the paths really did: ``steps`` (path-steps
     that ran the predictor), ``newton`` (path corrector iterations),
-    ``solves`` (full assemble + eliminate + back-substitute) and
-    ``replays`` (rhs + replay + back-substitute), added to its entries;
-    all are known on the host at no cost.
+    ``solves`` (full assemble + eliminate + back-substitute),
+    ``replays`` (rhs + replay + back-substitute) and, of those,
+    ``split_solves`` and ``split_replays`` (RK-stage evaluations at the
+    2-term split of "split3_rk2"), added to its entries; all are known on
+    the host at no cost.
 
     Under ``predictor_handoff`` no path has a kept elimination when the
     call starts, as the kernel keeps it in shared memory only for the
@@ -807,17 +863,29 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
         if work is not None:
             work[key] = work.get(key, 0) + k
 
+    # The RK stages' evaluations (want_h False) take the 2-term split
+    # under "split3_rk2"; the corrector's (want_h True) stay FP32.
+    split2 = cfg.eval_precision == "split3_rk2"
+
     def full(xv, P, R, want_h=False):
         count("solves", xv[0].shape[0])
-        f = factor_plain(tb, _assemble(tb, xv, P, R, want_h))
+        split = split2 and not want_h
+        count("split_solves", xv[0].shape[0] if split else 0)
+        f = factor_plain(tb, _assemble(tb, xv, P, R, want_h, split2=split))
         return f, backsub_plain(tb, f.mr, f.mi, f.piv)
 
     def replay(kept, xv, P, R, want_h=False):
         count("replays", xv[0].shape[0])
+        split = split2 and not want_h
+        count("split_replays", xv[0].shape[0] if split else 0)
         return resolve_plain(
-            tb, kept, _assemble(tb, xv, P, R, want_h, rhs_only=True))
+            tb, kept, _assemble(tb, xv, P, R, want_h, rhs_only=True,
+                                split2=split))
 
-    P, R = _fill(efg, t, rk=True)
+    def fill(tv, rk=True):
+        return _fill(efg, tv, rk=rk, basis=cfg.pair_coef_basis)
+
+    P, R = fill(t)
     if ho is not None and bool(ho[0].any()):
         hv, hf = ho[0].nonzero()[:, 0], (~ho[0]).nonzero()[:, 0]
         k1 = (torch.empty_like(x[0]), torch.empty_like(x[1]))
@@ -839,7 +907,7 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     def axpy(a, k):
         return x[0] + a * k[0], x[1] + a * k[1]
 
-    P, R = _fill(efg, tb_, rk=True)
+    P, R = fill(tb_)
     k2 = stage(axpy(half[:, None], k1), P, R)
     d = dtc[:, None]
     # A tensor divisor: PyTorch on CUDA multiplies by the reciprocal of a
@@ -848,14 +916,14 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     if cfg.predictor == "rk2":
         cur = torch.stack(axpy(d, k2), dim=1)              # (A, 2, 30)
     elif cfg.predictor == "rk3":
-        P, R = _fill(efg, tc, rk=True)
+        P, R = fill(tc)
         k3 = stage(tuple(x[j] - d * k1[j] + 2.0 * d * k2[j]
                          for j in range(2)), P, R)
         cur = torch.stack([x[j] + sixth * (k1[j] + 4.0 * k2[j] + k3[j])
                            for j in range(2)], dim=1)
     else:
         k3 = stage(axpy(half[:, None], k2), P, R)
-        P, R = _fill(efg, tc, rk=True)
+        P, R = fill(tc)
         k4 = stage(axpy(d, k3), P, R)
         cur = torch.stack([
             x[j] + sixth * (k1[j] + 2.0 * (k2[j] + k3[j]) + k4[j])
@@ -863,7 +931,7 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
 
     # Newton corrector at frozen t_c; a path stops at its first success
     # or divergence.
-    P, _ = _fill(efg, tc, rk=False)
+    P, _ = fill(tc, rk=False)
     ok = torch.zeros(A, dtype=torch.bool, device=t.device)
     inf = torch.zeros_like(ok)
     live = torch.arange(A, device=t.device)
@@ -987,7 +1055,7 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
         if x0.device != target_params.device:
             raise ValueError("x0 and target_params must share a device")
         perm, inv, aux = on(x0.device)
-        efg = build_pair_coefs(problem, target_params)
+        efg = build_pair_coefs(problem, target_params, cfg.pair_coef_basis)
         x = x0[:, perm].contiguous()
         fl = init_flags(cfg, x.shape[0], x.device)
         if isinstance(aux, _Tables):

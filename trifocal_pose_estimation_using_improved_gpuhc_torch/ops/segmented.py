@@ -113,7 +113,8 @@ class _Run:
         self.xl = self.x.clone()
         B = self.x.shape[0]
         self.fl = fused.init_flags(tr.hc, B, dev)
-        self.efg = fused.build_pair_coefs(tr.problem, target_params)
+        self.efg = fused.build_pair_coefs(tr.problem, target_params,
+                                          tr.hc.pair_coef_basis)
         self.order = torch.arange(B, device=dev)
         self.scored = torch.zeros(B, dtype=torch.bool, device=dev)
         self.found = torch.zeros((), dtype=torch.bool, device=dev)

@@ -73,7 +73,9 @@ class HCConfig:
     # (ops/reduce.py), "schedule" = the 30-step static schedule
     # (ops/schedule.py); same pivots, different programs.
     solver: str = "reduced"
-    tile: int = 128                     # the TPU kernel's paths per tile
+    # The TPU kernel's paths per tile.  Only predictor_handoff depends on
+    # it there (decided per tile); the port runs that at tile 1 only.
+    tile: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,46 +121,71 @@ def ransac_data_dir(cfg: EngineConfig) -> str:
     )
 
 
-# Knob -> the values the port implements (the first is the default).
-_SHIPPED_HC = {
+# Knob -> the values the port implements (the first is the default).  The
+# tracker's knobs, which pick the function the kernel computes:
+_TRACKER_HC = {
     "solver": ("reduced", "schedule"),
-    "pair_coef_basis": ("efg",),
+    # "abc": P(t) = (A t + B) t + C, with its known floor under the
+    # imaginary residues, reproduced (the JAX package's round-4 note).
+    "pair_coef_basis": ("efg", "abc"),
     "predictor": ("rk4", "rk3", "rk2"),
-    "eval_structure": ("classic",),
+    # On the TPU, "gathered" and "merged" are other matmul forms of the
+    # classic evaluation's function: the port's one evaluation is each.
+    "eval_structure": ("classic", "gathered", "merged"),
     "rk_jacobian_reuse": (False, True),
     "corrector_jacobian_reuse": (0, 1, 2),
     "predictor_handoff": (False, True),
+    # On the TPU split3k, split3 and highest are matmul modes that all
+    # compute the FP32 evaluation (exact 3-term bf16 splits, or HIGHEST):
+    # the port's FP32 evaluation is each of them.  "split3_rk2" evaluates
+    # the RK stages with 2-term splits (about 16 significant bits).
+    "eval_precision": ("split3k", "split3", "highest", "split3_rk2"),
+}
+# ... and the engine's: the trackers also run truncate_paths=False.
+_ENGINE_HC = {
     "truncate_paths": (True,),
     # The JAX package runs its full-pivot XLA oracle ("xla") or the P2C
     # tracker ("p2c") for the other backends; the port has neither yet.
     "backend": ("fused",),
-    # On the TPU these three are matmul modes that all compute the FP32
-    # evaluation (exact 3-term bf16 splits, or HIGHEST), and in interpret
-    # mode the JAX kernel runs plain f32 for each: the port's FP32
-    # evaluation is each of them.  "split3_rk2" evaluates the predictor
-    # with 2-term splits (about 16 significant bits), another function.
-    "eval_precision": ("split3k", "split3", "highest"),
 }
 _SHIPPED_RANSAC = {"abort_by_good_sol": (False, True)}
 
 
-def check_shipped(cfg: EngineConfig) -> None:
-    """Raise ValueError unless every semantic knob has a value the port
-    implements, in a combination the JAX kernel accepts."""
-    for section, shipped in (("hc", _SHIPPED_HC), ("ransac", _SHIPPED_RANSAC)):
-        sub = getattr(cfg, section)
-        for name, allowed in shipped.items():
-            got = getattr(sub, name)
-            if got not in allowed:
-                raise ValueError(
-                    f"{section}.{name}={got!r} is not supported by the torch "
-                    f"port (only {', '.join(map(repr, allowed))})"
-                )
-    if cfg.hc.predictor_handoff and cfg.hc.rk_jacobian_reuse:
+def _check_values(section: str, sub, shipped: dict) -> None:
+    for name, allowed in shipped.items():
+        got = getattr(sub, name)
+        if got not in allowed:
+            raise ValueError(
+                f"{section}.{name}={got!r} is not supported by the torch "
+                f"port (only {', '.join(map(repr, allowed))})"
+            )
+
+
+def check_hc(hc: HCConfig) -> None:
+    """Raise ValueError unless every tracker knob has a value the port
+    implements, in a combination the port computes as the JAX kernel
+    does.  The trackers and the kernel's variant key call it."""
+    _check_values("hc", hc, _TRACKER_HC)
+    if hc.predictor_handoff and hc.rk_jacobian_reuse:
         # Both replay one saved factorization at RK stage 1 or after it;
         # the JAX kernel refuses the pair (ops/fused.py there).
         raise ValueError("hc.predictor_handoff and hc.rk_jacobian_reuse "
                          "cannot be combined")
+    if hc.predictor_handoff and hc.tile != 1:
+        # The JAX kernel decides the handoff once per tile of hc.tile paths
+        # (no path of the tile rolled back); the port decides it per path,
+        # which is that function at a tile of one path only.
+        raise ValueError(f"hc.predictor_handoff needs hc.tile=1, got "
+                         f"hc.tile={hc.tile}: the JAX kernel decides the "
+                         f"handoff per tile, the port per path")
+
+
+def check_shipped(cfg: EngineConfig) -> None:
+    """Raise ValueError unless the engine runs this configuration as the
+    JAX package does: ``check_hc``, and the engine's own knobs."""
+    check_hc(cfg.hc)
+    _check_values("hc", cfg.hc, _ENGINE_HC)
+    _check_values("ransac", cfg.ransac, _SHIPPED_RANSAC)
 
 
 def resolve_data_root(cfg: EngineConfig, verbose: bool = True) -> EngineConfig:
