@@ -6,8 +6,9 @@
 Phases (each prints its lines; any failure raises and exits nonzero):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. the kernel builds (csrc/hc_track.cu with nvcc, the default and each
-     variant build of phases 8 and 9, all at once), their seconds and
-     ptxas's resource lines;
+     variant build of phases 8 and 9, all at once), their seconds, and per
+     build its resident blocks per SM (the occupancy query that sizes the
+     kernel's persistent grid) and ptxas's resource lines;
   3. the kernel against its plain PyTorch twin (ops/fused.track_plain) on
      the card, condensed solve ("reduced"): 1 hypothesis x all paths;
   4. the main path: one RANSAC round (view 0, seed 0, H=100 hypotheses)
@@ -173,18 +174,30 @@ def fill_steps(c):
     return out
 
 
+def assembly_flops(c, rhs_only=False):
+    """FP32 operations of one evaluation (or, rhs_only, of a replay's rhs),
+    counted as the function needs them: each distinct monomial once (6 per
+    complex product: one for a quadratic monomial, two for a cubic one),
+    each combo P[q] x^m once (6), and per term the integer scale and the
+    complex add (4)."""
+    nz_terms, rhs_terms = c.term_lists()
+    parts = [(rhs_terms, c.ht_m, c.ht_C, 12)]
+    if not rhs_only:
+        parts.append((nz_terms, c.hx_m, c.hx_C, 6))
+    return sum(per_mono * len(np.unique(m)) + 6 * int((C != 0).any(1).sum())
+               + 4 * sum(map(len, terms)) for terms, m, C, per_mono in parts)
+
+
 def solve_flops(c):
     """FP32 operations of one assemble + solve of the constants' program.
 
-    Assembly: an Hx term is two complex products, a scale and a complex
-    add (16), an rhs term three products, a scale and an add (22).  Solve,
-    per step (``fill_steps``): the pivot metric of each unused candidate
-    (one add), the reciprocal (3 + 2), and per other unused candidate the
-    multiplier (6) and the update of the pivot row's pattern (8 per
-    entry); back-substitution, per step, a complex dot over the pattern's
-    columns (8 each), the rhs (2) and the scaled result (11)."""
-    nz_terms, rhs_terms = c.term_lists()
-    flops = 16 * sum(map(len, nz_terms)) + 22 * sum(map(len, rhs_terms))
+    Assembly: ``assembly_flops``.  Solve, per step (``fill_steps``): the
+    pivot metric of each unused candidate (one add), the reciprocal
+    (3 + 2), and per other unused candidate the multiplier (6) and the
+    update of the pivot row's pattern (8 per entry); back-substitution,
+    per step, a complex dot over the pattern's columns (8 each), the rhs
+    (2) and the scaled result (11)."""
+    flops = assembly_flops(c)
     for _, _, rows, pattern in fill_steps(c):
         w = len(pattern)
         flops += len(rows) + 5 + (len(rows) - 1) * (6 + 8 * w)
@@ -194,11 +207,10 @@ def solve_flops(c):
 
 def replay_flops(c):
     """FP32 operations of one replay of a kept elimination on a new rhs:
-    the rhs-only assembly (22 per rhs term), per step the update of each
-    other unused candidate's rhs (8), and the back-substitution of
+    the rhs-only assembly (``assembly_flops``), per step the update of
+    each other unused candidate's rhs (8), and the back-substitution of
     ``solve_flops``."""
-    _, rhs_terms = c.term_lists()
-    flops = 22 * sum(map(len, rhs_terms))
+    flops = assembly_flops(c, rhs_only=True)
     for _, _, rows, pattern in fill_steps(c):
         flops += 8 * (len(rows) - 1) + 8 * (len(pattern) - 1) + 2 + 11
     return flops
@@ -299,14 +311,24 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc "
           + ", ".join(f"{k} {v:.2f} s" for k, v in
                       _kernels.build_seconds.items()) + ")", flush=True)
-    for label, log in _kernels.build_logs.items():
-        fn = "?"
-        for line in log.splitlines():
+    # Per build: its resident blocks per SM (the occupancy query its
+    # persistent grid is sized by) and ptxas's lines for the tracker.
+    occupancy = {}
+    for c_ in [hc, *variants.values()]:
+        label = _kernels.hc_track_label(c_)
+        occupancy[label] = _kernels.hc_track_blocks_per_sm(c_, dev)
+        ptxas, fn = [], "?"
+        for line in _kernels.build_logs.get(label, "").splitlines():
             if "Compiling entry function" in line:
                 fn = ("solve_replay" if "solve_replay" in line
                       else "hc_track_kernel")
-            elif "registers" in line or "spill" in line:
-                print(f"ptxas: {label} {fn}: {line.strip()}")
+            elif fn == "hc_track_kernel" and ("registers" in line
+                                              or "spill" in line):
+                ptxas.append(line.split(":", 1)[-1].strip())
+        print(f"build {label}: blocks_per_sm {occupancy[label]} "
+              f"({torch.cuda.get_device_properties(dev).multi_processor_count}"
+              f" SMs); ptxas hc_track_kernel: {'; '.join(ptxas)}",
+              flush=True)
 
     engine = eng.TrifocalPoseEngine(cfg)
     assert engine.device == dev, engine.device
@@ -417,6 +439,7 @@ def main() -> int:
     assert nf <= max(3, int(FLIP_FRAC * n)), nf
     assert rel < REL_TOL, rel
     k_reduced = dict(program="reduced", launches=launches,
+                     blocks_per_sm=occupancy[_kernels.hc_track_label(hc)],
                      max_abs_err=abs_err, ms_one_launch=ms,
                      plain_ms=plain_ms_reduced,
                      bound_ms=bound_ms, bound_by=bound_by)
@@ -449,6 +472,7 @@ def main() -> int:
     assert launches_s > 0, "the schedule round did not launch the kernel"
     pose_line(rr_s)
     k_schedule = dict(program="schedule", launches=launches_s,
+                      blocks_per_sm=occupancy[_kernels.hc_track_label(hc_s)],
                       max_abs_err=abs_err_s, ms_one_launch=ms_s,
                       plain_ms=plain_ms_s, bound_ms=bound_s,
                       bound_by=bound_by_s)
@@ -580,6 +604,8 @@ def main() -> int:
         assert not exact or same_v == n, same_v
         kernels.append(dict(program=c_v.solver, variant=name,
                             replaces=REPLACES_VARIANT[name],
+                            blocks_per_sm=occupancy[
+                                _kernels.hc_track_label(hc_v)],
                             launches=launches_v, max_abs_err=abs_v, ms=seg_ms,
                             plain_ms=plain_ms, plain_paths=n, bound_ms=bound_v,
                             bound_by=by_v))

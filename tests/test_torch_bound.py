@@ -1,5 +1,8 @@
 """The operation count behind chip_smoke.py's bound of the tracker kernel.
 
+An evaluation is counted as the function needs it (``assembly_flops``,
+pinned here): each distinct monomial and each combo once, then the scale
+and the add of each term, whatever the kernel recomputes.
 Under eval_precision "split3_rk2" the RK stages' evaluations add the
 split's FP32 operations (``split_flops``, pinned here), counted once per
 point entry, distinct monomial and combo as the function needs them, not
@@ -72,26 +75,40 @@ def test_fill_pattern_covers_the_solve(problem, solver):
     assert pivots_seen > 2 * c.n
 
 
-@pytest.mark.parametrize("solver,flops", [("reduced", 34138),
-                                          ("schedule", 33918)])
+@pytest.mark.parametrize("solver", ["reduced", "schedule"])
+def test_assembly_flops_of_the_committed_problem(problem, solver):
+    """An evaluation's count, as the function needs it: 6 per quadratic
+    monomial (107), 12 per cubic one (175), 6 per combo (450 Hx, 461 rhs)
+    and 4 per term (926 Hx, 528 rhs); a replay's rhs, its cubic part."""
+    c = fused.FusedConstants.build(problem, solver=solver)
+    assert chip_smoke.assembly_flops(c) == \
+        6 * 107 + 12 * 175 + 6 * 911 + 4 * 1454 == 14024
+    assert chip_smoke.assembly_flops(c, rhs_only=True) == \
+        12 * 175 + 6 * 461 + 4 * 528 == 6978
+
+
+@pytest.mark.parametrize("solver,flops", [("reduced", 21730),
+                                          ("schedule", 21510)])
 def test_solve_flops_of_the_committed_problem(problem, solver, flops):
-    """The per-solve counts that PERF.md's bounds rest on."""
+    """The per-solve counts that PERF.md's bounds rest on: the assembly
+    once per monomial and combo, then the solve over its pattern."""
     c = fused.FusedConstants.build(problem, solver=solver)
     assert chip_smoke.solve_flops(c) == flops
+    assert flops - chip_smoke.assembly_flops(c) == \
+        {"reduced": 7706, "schedule": 7486}[solver]
 
 
-@pytest.mark.parametrize("solver,flops", [("reduced", 14070),
-                                          ("schedule", 14038)])
+@pytest.mark.parametrize("solver,flops", [("reduced", 9432),
+                                          ("schedule", 9400)])
 def test_replay_flops_of_the_committed_problem(problem, solver, flops):
-    """A replay's count: the rhs-only assembly (22 per rhs term), 8 per
-    other unused candidate per step on the rhs column, and the solve's
+    """A replay's count: the rhs-only assembly, 8 per other unused
+    candidate per step on the rhs column, and the solve's
     back-substitution."""
     c = fused.FusedConstants.build(problem, solver=solver)
-    _, rhs_terms = c.term_lists()
     backsub = sum(8 * (len(p) - 1) + 13 for *_, p in chip_smoke.fill_steps(c))
     updates = sum(8 * (len(r) - 1) for _, _, r, _ in chip_smoke.fill_steps(c))
-    assert chip_smoke.replay_flops(c) == 22 * sum(map(len, rhs_terms)) \
-        + updates + backsub == flops
+    assert chip_smoke.replay_flops(c) == \
+        chip_smoke.assembly_flops(c, rhs_only=True) + updates + backsub == flops
 
 
 @pytest.mark.parametrize("solver", ["reduced", "schedule"])

@@ -14,8 +14,11 @@ variant's build (the step variants, the RK stages' 2-term split of
 for segmented tracking against one launch (under the predictor handoff,
 which restarts at every launch, against track_plain over the same
 segments).  The kernel's solve and replay are also held alone
-(hc_solve_replay) to their plain twins; the default build's ptxas line is
-pinned; eval_structure "gathered" and "merged" launch the default build.
+(hc_solve_replay) to their plain twins; the default build's ptxas line and
+blocks per SM are pinned; eval_structure "gathered" and "merged" launch the
+default build.  The grid is persistent (warps take paths from a counter):
+one block equals the full grid, and a second launch starts its queue
+afresh.
 """
 
 import dataclasses
@@ -129,6 +132,57 @@ def test_cuda_kernel_resumes_bit_exactly(setup):
     torch.cuda.synchronize()
     for u, v in zip(one, two):
         assert torch.equal(u, v)
+
+
+def _fresh_state(port, hc, x0, tgt):
+    c = fused.FusedConstants.build(port, solver=fused.solver_of(hc))
+    plan = torch.as_tensor(c.kernel_plan(), device=x0.device)
+    perm = torch.as_tensor(c.perm, dtype=torch.long, device=x0.device)
+    x = x0[:, perm].contiguous()
+    efg = fused.build_pair_coefs(port, tgt, hc.pair_coef_basis)
+
+    def fresh():
+        return (x.clone(), x.clone(),
+                fused.init_flags(hc, x.shape[0], x.device))
+
+    return fresh, efg, plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["reduced", "schedule"])
+def test_cuda_one_block_equals_the_full_grid(setup, solver):
+    """The persistent grid's queue order does not matter: one block of
+    warps taking every path equals the occupancy-sized grid, path for
+    path."""
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, solver=solver)
+    fresh, efg, plan = _fresh_state(port, hc, x0, tgt)
+    full, one = fresh(), fresh()
+    _kernels.hc_track(*full, efg, plan, hc.max_steps + 1, hc)
+    _kernels.hc_track(*one, efg, plan, hc.max_steps + 1, hc, blocks=1)
+    torch.cuda.synchronize()
+    assert _kernels.hc_track_blocks_per_sm(hc) > 0
+    for u, v in zip(full, one):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.gpu
+def test_cuda_launches_reset_the_path_counter(setup):
+    """Each launch starts its path queue at 0: the second of two launches
+    in a row on fresh state equals a fresh process's first, on every
+    path."""
+    cfg, port, x0, tgt = setup
+    fresh, efg, plan = _fresh_state(port, cfg.hc, x0, tgt)
+    first, second = fresh(), fresh()
+    _kernels.hc_track(*first, efg, plan, 12, cfg.hc)
+    _kernels.hc_track(*second, efg, plan, 12, cfg.hc)
+    torch.cuda.synchronize()
+    c = fused.FusedConstants.build(port)
+    p = fused.track_plain(c, cfg.hc, *fresh(), efg, niter=12)
+    for u, v, w in zip(first, second, p):
+        assert torch.equal(u, v)
+        assert torch.equal(v, w)
+    assert int(second[2][:, fused._F_NST].max()) == 12
 
 
 @pytest.mark.gpu
@@ -317,11 +371,13 @@ def _resources(log, entry):
 
 @pytest.mark.gpu
 def test_cuda_default_build_resources(setup, tmp_path, monkeypatch):
-    """The default build compiles as before the variants: 96 registers,
-    39,360 bytes of static shared memory, no spills (a fresh build, so
-    that ptxas reports it)."""
+    """The default build's resources: 83 registers, 45,568 bytes of
+    static shared memory (4 warps of 11,392: the swizzled system, the pair
+    products, one 32-entry vector and the monomial table), no spills (a
+    fresh build, so that ptxas reports it); 5 blocks per SM."""
     monkeypatch.setattr(_kernels, "BUILD_DIR", str(tmp_path))
     job = _kernels._hc_track_job(config.HCConfig())
     _kernels.build([job])
     assert _resources(_kernels.build_logs[job[1]], "hc_track_kernel") == \
-        (96, 39360, 0, 0)
+        (83, 45568, 0, 0)
+    assert _kernels.hc_track_blocks_per_sm(config.HCConfig()) == 5

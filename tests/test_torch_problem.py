@@ -103,8 +103,9 @@ def test_kernel_plan_header(constants):
     plan = c.kernel_plan()
     assert plan.dtype == np.int32
     assert tuple(plan[:4]) == (30, c.q, 30, len(c.maps))
-    offs = plan[4:12]
+    offs = plan[4:11]
     assert offs[0] == 16 and np.all(np.diff(offs) > 0) and offs[-1] < plan.size
+    assert tuple(plan[11:13]) == (len(c.qa), len(c.qa) + len(c.ca))
 
 
 @pytest.mark.parametrize("knob,value", [

@@ -1,5 +1,5 @@
 // Homotopy-continuation path tracker for the trifocal 2op1p 30x30 system,
-// one warp per path, for sm_90a (H100).
+// persistent warps over a queue of paths, for sm_90a (H100).
 //
 // Replaces the TPU kernel ops/fused.py::_make_kernel of the JAX package (the
 // `kernel` closure that build_kernel_caller launches through pl.pallas_call):
@@ -17,9 +17,7 @@
 //  * "schedule" replaces its 30-stage static schedule (_solve ->
 //    _eliminate, _backsub): one level, 30 steps of 2 to 30 candidates.
 // A step takes up to 32 candidates, one lane each, so the pivot search is
-// one max butterfly plus a ballot whatever the program; the schedule's
-// longer steps cost more row updates (the loop over live candidates), not
-// more registers or shared memory.
+// one integer max reduction plus a ballot whatever the program.
 //
 // The step variants of the JAX kernel are compile-time choices, one build
 // each (ops/_kernels.py passes -D flags; no flag builds the default):
@@ -33,7 +31,7 @@
 //  * HC_SPLIT2: eval_precision "split3_rk2", where the JAX kernel's RK-stage
 //    evaluations take every constant matmul's input as two bf16 terms
 //    h + l1 (about 16 significant bits; _sdot2/_kdot2 there): here the
-//    point, the quadratic and cubic monomials pass through r2() and each
+//    point and the quadratic and cubic monomials pass through r2() and each
 //    entry sums its terms' h and l1 apart.  The corrector stays FP32;
 //  * HC_ABC: pair_coef_basis "abc", P(t) = (A t + B) t + C (its fill_P's
 //    abc branch) in place of the two-point basis.
@@ -48,24 +46,51 @@
 // it gives that solve's x bit for bit; every later full solve overwrites
 // what it keeps, so a replay always uses the last full solve.
 //
-// What bounds it on the card: not bytes -- a path reads ~3 KB of state and
-// coefficients once and the tables stay in L1/L2 -- but issue latency.  Each
-// step is ~7 evaluate+solve rounds, and a solve is 30 dependent pivot steps
-// (shuffle reduction, broadcast, row updates) plus 30 dependent
-// back-substitution dot products.  The per-path augmented system needs
-// shared memory (30 x 33 complex, ~9.8 KB per warp with the rest), which
-// caps resident warps per SM: 5 blocks of 4 warps, 4 blocks for a replaying
-// build, which adds 2.8 KB of multipliers per warp.
+// What bounds it on the card: neither bytes nor operations.  A path reads
+// ~3 KB of state and coefficients once (the plan, ~16 KB, stays in L1/L2),
+// and it needs ~22,000 FP32 operations per evaluate + solve (the bound's
+// count, chip_smoke.solve_flops), ~3.5 ms for a round at the FP32 peak.
+// What it waits on is latency: a step is ~6 evaluate+solve rounds, and a
+// solve is 30 dependent pivot steps (max reduction, ballot, broadcast, row
+// updates) plus 30 dependent back-substitution dot products, each a
+// shuffle butterfly.  Hiding that latency takes resident warps, and a warp's
+// augmented system lives in shared memory, which caps them: 5 blocks of 4
+// warps per SM (4 for a replaying build, with 2.8 KB more per warp).
 //
-// What the design does about it: one warp per path keeps every dependent
-// chain inside a warp (shuffles and __syncwarp, never __syncthreads), lane e
-// owns equation row e while evaluating and column j while eliminating, and
-// a warp leaves its loop the moment its path converges, diverges or is
-// pruned, so a finished path costs nothing (the TPU's survivor compaction
-// has no counterpart here).  Rows are padded to 33 complex so the row-owner
-// writes of the evaluation do not collide in one shared-memory bank.
-// FP32 throughout: no TF32, no fast-math, and no FMA contraction (built with
-// -fmad=false): every product and sum rounds once, in the order track_plain
+// What the design does about it:
+//  * Persistent warps.  The grid is the blocks that fit on the card at
+//    once (the occupancy query below).  Each warp takes its next path from
+//    a counter in device memory (lane 0's atomicAdd, broadcast) and runs it
+//    to its end or `niter` steps, so a finished path frees its warp at once
+//    and a slow path holds no block's other slots; the only tail is the
+//    last one.  Which warp runs a path changes nothing in its arithmetic.
+//  * One warp per path keeps every dependent chain inside a warp (shuffles
+//    and __syncwarp, never __syncthreads).
+//  * The evaluation forms each of its monomials once per evaluation into
+//    a per-warp table (about 9 per lane), then walks a packed plan: the 200
+//    entries (170 Hx nonzeros, 30 rhs rows) dealt to the lanes largest
+//    first, lane i's k-th term in word 32 k + i (one coalesced 128-byte load
+//    per warp and term), each term one complex product P[q] * monomial, a
+//    scale and an add.  The critical lane runs 48 terms where the mean is
+//    45.4.  A replay's rhs has a plan of its own.
+//  * The elimination walks the ballot of live candidates only, two at a
+//    time, each one's multiplier and row a broadcast read from shared
+//    memory.  The pivot's maximum is one __reduce_max_sync on integer keys
+//    that order as |Re|+|Im| does.
+//  * Back-substitution keeps x in registers: every lane forms each step's
+//    value (a butterfly sum is the same in every lane) and the column's
+//    lane keeps it, with no shared-memory round trip on the chain; the next
+//    pivot row and the reciprocal are formed while the sum runs.
+//  * The system's rows are 32 complex wide with the column XOR the row (a
+//    swizzle, no pad column): a column's rows fall in distinct banks, and
+//    the monomial table still fits at 5 blocks per SM,
+//    with the evaluation point and a step's multipliers sharing one
+//    32-entry array and the solve's row maps the monomial table's room.
+// No tensor cores: the evaluation is a 0.8 %-dense integer matrix times the
+// monomials, a sparse product per path, and the solve a chain of dependent
+// pivots; dense bf16 products would do ~100x the arithmetic and round
+// differently.  No FMA contraction (built with -fmad=false), no TF32, no
+// fast-math: every product and sum rounds once, in the order track_plain
 // writes it out, so the kernel and its twin agree bit for bit.
 
 #include <cuda_bf16.h>
@@ -96,24 +121,30 @@ namespace {
 
 constexpr int NV = 30;        // variables = equations
 constexpr int RHS = 30;       // right-hand-side column of the augmented row
-constexpr int LD = 33;        // shared row stride (complex), bank padding
-constexpr int WARPS = 4;      // paths per block
+constexpr int W = 32;         // row width (complex), swizzled
+constexpr int WARPS = 4;      // warps per block
 constexpr int QMAX = 64;      // parameter pairs per path
+constexpr int MMAX = 288;     // monomials per evaluation (fused.MMAX)
 constexpr int STEP_INTS = 36; // [level, col, ncand, fslot, cand[32]]
 constexpr int FSLOTS = 352;   // kept multipliers per path (fused.FSLOTS)
 constexpr unsigned FULL = 0xffffffffu;
+constexpr unsigned LAST = 1u << 15;  // packed term: its entry's last
 
 constexpr int ORDER = HC_ORDER;
 constexpr bool CJR = HC_CJR != 0, CPH = HC_CPH != 0, RKJ = HC_RKJ != 0;
 constexpr bool REPLAY = CJR || CPH || RKJ;
 constexpr bool SPLIT2 = HC_SPLIT2 != 0, ABC = HC_ABC != 0;
+// Resident blocks per SM that shared memory allows; registers are held to
+// the same count (__launch_bounds__).
+constexpr int MIN_BLOCKS = REPLAY ? 4 : 5;
 static_assert(ORDER == 2 || ORDER == 3 || ORDER == 4, "HC_ORDER is 2, 3 or 4");
 static_assert(!(CPH && RKJ), "the handoff and frozen RK stages exclude each other");
 
 // Plan header (see FusedConstants.kernel_plan).
 enum {
   H_N = 0, H_Q, H_NSTEP, H_NMAP,
-  H_MAP0, H_STEPS, H_MAPS, H_HXOFF, H_HXT, H_RHSOFF, H_RHST, H_DEPTH
+  H_MAP0, H_STEPS, H_MAPS, H_MONO, H_EVAL, H_EVALR, H_DEPTH,
+  H_NQUAD, H_NMONO
 };
 
 struct Params {
@@ -123,14 +154,23 @@ struct Params {
 };
 
 struct WarpSmem {
-  float2 m[NV * LD];  // augmented system, rows = equations
-  float2 xe[32];      // evaluation point; xe[NV] = 1 (homogeneous slot)
-  float2 xs[32];      // back-substitution vector; xs[RHS] = -1
-  float2 p[QMAX];     // pair products for Hx
-  float2 r[QMAX];     // pair products (corrector) or derivatives (RK)
-  int map[2][32];     // current / next level row maps
-  int piv[32];        // pivot row of every step
+  float2 m[NV * W];     // augmented system, entry (r, c) at at(r, c)
+  float2 pr[2 * QMAX];  // pair products P, then R: dP/dt (RK) or P again
+  // The evaluation point (v[NV] = 1, the homogeneous slot), then a step's
+  // multipliers during the elimination: never both at once.
+  float2 v[32];
+  union {
+    float2 mono[MMAX];  // the evaluation's monomials (fused.monomials order)
+    struct {
+      int map[2][32];   // current / next level row maps
+      int rows[32];     // a step's candidate rows
+    } sv;               // the solve's, after the evaluation
+  } u;
+  int piv[32];          // pivot row of every step
 };
+
+// Entry (r, c) of the system: rows of 32, the column XOR the row.
+__device__ __forceinline__ int at(int r, int c) { return r * W + (c ^ r); }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -211,81 +251,92 @@ __device__ void fill(WarpSmem& s, const float2 (&e)[2], const float2 (&f)[2],
       if constexpr (ABC) {
         const float2 pq = make_float2((e[j].x * t + f[j].x) * t + g[j].x,
                                       (e[j].y * t + f[j].y) * t + g[j].y);
-        s.p[q] = pq;
-        s.r[q] = rk ? make_float2((2.0f * e[j].x) * t + f[j].x,
-                                  (2.0f * e[j].y) * t + f[j].y)
-                    : pq;
+        s.pr[q] = pq;
+        s.pr[QMAX + q] = rk ? make_float2((2.0f * e[j].x) * t + f[j].x,
+                                          (2.0f * e[j].y) * t + f[j].y)
+                            : pq;
       } else {
         float2 pq = make_float2(tt * e[j].x + (tv * f[j].x + vv * g[j].x),
                                 tt * e[j].y + (tv * f[j].y + vv * g[j].y));
-        s.p[q] = pq;
-        s.r[q] = rk ? make_float2(t2 * e[j].x + (a * f[j].x - b * g[j].x),
-                                  t2 * e[j].y + (a * f[j].y - b * g[j].y))
-                    : pq;
+        s.pr[q] = pq;
+        s.pr[QMAX + q] = rk ? make_float2(t2 * e[j].x + (a * f[j].x - b * g[j].x),
+                                          t2 * e[j].y + (a * f[j].y - b * g[j].y))
+                            : pq;
       }
     }
   }
 }
 
-// Row `lane`'s rhs at xe: its terms (coef, q, a, b, c) summed in order (S2:
-// the 2-term split, see accumulate).
+// The monomials from index `first` on at the point in s.v, each once:
+// x[a] x[b], times x[c] for a cubic one (S2: the split's value of each).
 template <bool S2>
-__device__ __forceinline__ float2 rhs_row(const WarpSmem& s,
+__device__ __forceinline__ void monomials(WarpSmem& s,
                                           const int* __restrict__ plan,
-                                          int lane) {
-  const int* rhs_off = plan + plan[H_RHSOFF];
-  const int* rhs_t = plan + plan[H_RHST];
-  float2 acc = make_float2(0.f, 0.f), lo = make_float2(0.f, 0.f);
-  for (int k = rhs_off[lane]; k < rhs_off[lane + 1]; ++k) {
-    const int* tm = rhs_t + 5 * k;
-    const float coef = (float)tm[0];
-    const float2 x3 = operand<S2>(
-        cmul(cmul(s.xe[tm[2]], s.xe[tm[3]]), s.xe[tm[4]]));
-    accumulate<S2>(acc, lo, coef, cmul(s.r[tm[1]], x3));
+                                          int first, int lane) {
+  const int* defs = plan + plan[H_MONO];
+  const int n_mono = plan[H_NMONO];
+  for (int i = first + lane; i < n_mono; i += 32) {
+    const int d = defs[i];
+    float2 v = cmul(s.v[d & 31], s.v[(d >> 5) & 31]);
+    const int c = (d >> 10) & 31;
+    if (c != 31) v = cmul(v, s.v[c]);
+    s.u.mono[i] = operand<S2>(v);
   }
-  return total<S2>(acc, lo);
+  __syncwarp();
 }
 
-// Augmented system at xe: lane e evaluates equation row e from its term
-// lists -- Hx nonzeros (col, coef, q, a, b) and the rhs (coef, q, a, b, c).
+// Walk a packed term plan (FusedConstants._packed_terms): each lane sums
+// its entries' terms coef * P[q] * monomial in order and writes each entry
+// where its last term says; a cubic monomial marks an rhs term (R, and -Ht
+// unless want_h).
+template <bool S2>
+__device__ __forceinline__ void walk_terms(WarpSmem& s,
+                                           const int* __restrict__ part,
+                                           int n_quad, bool want_h,
+                                           int lane) {
+  const int count = part[lane];
+  const unsigned* words = reinterpret_cast<const unsigned*>(part) + 32 + lane;
+  // Distinct arrays: a later term's reads need not wait for an entry's store.
+  float2* __restrict__ m = s.m;
+  const float2* __restrict__ pr = s.pr;
+  const float2* __restrict__ mono_t = s.u.mono;
+  float2 acc = make_float2(0.f, 0.f), lo = make_float2(0.f, 0.f);
+#pragma unroll 4
+  for (int k = 0; k < count; ++k) {
+    const unsigned w = __ldg(words + 32 * k);
+    const int mono = w & 511;
+    const bool rhs = mono >= n_quad;
+    const int q = ((w >> 9) & 63) + (rhs ? QMAX : 0);
+    const float coef = (float)((int)w >> 26);
+    accumulate<S2>(acc, lo, coef, cmul(pr[q], mono_t[mono]));
+    if (w & LAST) {
+      const float2 sum = total<S2>(acc, lo);
+      m[(w >> 16) & 1023] =
+          rhs && !want_h ? make_float2(-sum.x, -sum.y) : sum;
+      acc = lo = make_float2(0.f, 0.f);
+    }
+  }
+  __syncwarp();
+}
+
+// Augmented system at the point in s.v: the Hx nonzeros and the rhs, H
+// (want_h) or -Ht.
 template <bool S2 = false>
 __device__ void assemble(WarpSmem& s, const int* __restrict__ plan,
                          bool want_h, int lane) {
-  for (int row = 0; row < NV; ++row) s.m[row * LD + lane] = make_float2(0.f, 0.f);
-  __syncwarp();
-  if (lane < NV) {
-    const int* hx_off = plan + plan[H_HXOFF];
-    const int* hx_t = plan + plan[H_HXT];
-    int i = hx_off[lane];
-    const int end = hx_off[lane + 1];
-    while (i < end) {
-      const int col = hx_t[5 * i];
-      float2 acc = make_float2(0.f, 0.f), lo = make_float2(0.f, 0.f);
-      while (i < end && hx_t[5 * i] == col) {
-        const int* tm = hx_t + 5 * i;
-        const float coef = (float)tm[1];
-        const float2 x2 = operand<S2>(cmul(s.xe[tm[3]], s.xe[tm[4]]));
-        accumulate<S2>(acc, lo, coef, cmul(s.p[tm[2]], x2));
-        ++i;
-      }
-      s.m[lane * LD + col] = total<S2>(acc, lo);
-    }
-    const float2 acc = rhs_row<S2>(s, plan, lane);
-    s.m[lane * LD + RHS] = want_h ? acc : make_float2(-acc.x, -acc.y);
-  }
-  __syncwarp();
+  for (int i = lane; i < NV * W; i += 32) s.m[i] = make_float2(0.f, 0.f);
+  monomials<S2>(s, plan, 0, lane);
+  walk_terms<S2>(s, plan + plan[H_EVAL], plan[H_NQUAD], want_h, lane);
 }
 
 // The rhs column alone (a replay's input; the rest of s.m is the kept
-// elimination).
+// elimination): the cubic monomials and the rhs entries' own plan.
 template <bool S2 = false>
 __device__ void assemble_rhs(WarpSmem& s, const int* __restrict__ plan,
                              bool want_h, int lane) {
-  if (lane < NV) {
-    const float2 acc = rhs_row<S2>(s, plan, lane);
-    s.m[lane * LD + RHS] = want_h ? acc : make_float2(-acc.x, -acc.y);
-  }
-  __syncwarp();
+  const int n_quad = plan[H_NQUAD];
+  monomials<S2>(s, plan, n_quad, lane);
+  walk_terms<S2>(s, plan + plan[H_EVALR], n_quad, want_h, lane);
 }
 
 // Next level's rows: the k-th unused row of each entry's sources.
@@ -297,41 +348,56 @@ __device__ __forceinline__ void next_level(WarpSmem& s, const int* maps,
   if (mp[0] >= 0) {
     int cnt = 0;
     for (int j = 0; j < 3 && mp[j] >= 0; ++j) {
-      const int pr = s.map[cur][mp[j]];
+      const int pr = s.u.sv.map[cur][mp[j]];
       if (!((used >> pr) & 1u)) {
         if (cnt == mp[3]) out = pr;
         ++cnt;
       }
     }
   }
-  s.map[cur ^ 1][lane] = out;
+  s.u.sv.map[cur ^ 1][lane] = out;
   __syncwarp();
   cur ^= 1;
 }
 
 // Back-substitution over the pivot rows, last step first; returns lane v's
-// entry of x.
+// entry of x.  x stays in registers, lane v holding entry v (and lane RHS
+// the rhs's -1): each step's butterfly sum comes out the same in every
+// lane, so every lane forms the step's x value and the lane of its column
+// keeps it.  The next step's pivot row and pivot are read while this
+// step's sum runs, and each step's reciprocal is formed off that chain.
 __device__ __forceinline__ float2 backsub(WarpSmem& s,
                                           const int* __restrict__ plan,
                                           int lane) {
   const int n_step = plan[H_NSTEP];
   const int* steps = plan + plan[H_STEPS];
-  s.xs[lane] = make_float2(lane == RHS ? -1.0f : 0.0f, 0.0f);
-  __syncwarp();
+  float2 xs = make_float2(lane == RHS ? -1.0f : 0.0f, 0.0f);
+  int p = s.piv[n_step - 1];
+  int col = steps[STEP_INTS * (n_step - 1) + 1];
+  float2 row = s.m[at(p, lane)], pv = s.m[at(p, col)];
   for (int st = n_step - 1; st >= 0; --st) {
-    const int p = s.piv[st];
-    const int col = steps[STEP_INTS * st + 1];
-    const float2 a = cmul(s.m[p * LD + lane], s.xs[lane]);
-    const float ar = warp_sum(a.x), ai = warp_sum(a.y);
-    const float2 pv = s.m[p * LD + col];
     float den = pv.x * pv.x + pv.y * pv.y;
     if (den == 0.0f) den = 1.0f;
-    const float2 xv = cmul(make_float2(ar, ai), make_float2(-pv.x / den, pv.y / den));
-    __syncwarp();
-    if (lane == 0) s.xs[col] = xv;
-    __syncwarp();
+    const float2 inv = make_float2(-pv.x / den, pv.y / den);
+    const float2 a = cmul(row, xs);
+    const int c = col;
+    if (st > 0) {
+      p = s.piv[st - 1];
+      col = steps[STEP_INTS * (st - 1) + 1];
+      row = s.m[at(p, lane)];
+      pv = s.m[at(p, col)];
+    }
+    const float ar = warp_sum(a.x), ai = warp_sum(a.y);
+    const float2 xv = cmul(make_float2(ar, ai), inv);
+    if (lane == c) xs = xv;
   }
-  return lane < NV ? s.xs[lane] : make_float2(0.f, 0.f);
+  return lane < NV ? xs : make_float2(0.f, 0.f);
+}
+
+// mv -= f * prow, as solve() and replay() update a row.
+__device__ __forceinline__ void eliminate(float2& mv, float2 f, float2 prow) {
+  mv.x -= f.x * prow.x - f.y * prow.y;
+  mv.y -= f.x * prow.y + f.y * prow.x;
 }
 
 // Restricted-pivoting solve of s.m by the plan's pivot program; returns
@@ -343,7 +409,7 @@ __device__ float2 solve(WarpSmem& s, const int* __restrict__ plan,
   const int n_step = plan[H_NSTEP];
   const int* steps = plan + plan[H_STEPS];
   const int* maps = plan + plan[H_MAPS];
-  if (lane < NV) s.map[0][lane] = plan[plan[H_MAP0] + lane];
+  if (lane < NV) s.u.sv.map[0][lane] = plan[plan[H_MAP0] + lane];
   __syncwarp();
   unsigned used = 0u;
   int level = 0, cur = 0;
@@ -353,21 +419,22 @@ __device__ float2 solve(WarpSmem& s, const int* __restrict__ plan,
     for (; level < want; ++level) next_level(s, maps, level, used, cur, lane);
     int r = -1;
     float2 v = make_float2(0.f, 0.f);
-    float metric = -2.0f;
-    bool was = false;
+    bool was = false, nan = false;
+    unsigned key = 0u;  // 0: not a candidate, or a used row
     if (lane < nc) {
-      r = s.map[cur][sp[4 + lane]];
-      v = s.m[r * LD + col];
+      r = s.u.sv.map[cur][sp[4 + lane]];
+      v = s.m[at(r, col)];
       was = (used >> r) & 1u;
-      metric = was ? -1.0f : fabsf(v.x) + fabsf(v.y);
+      const float metric = fabsf(v.x) + fabsf(v.y);
+      // |Re|+|Im| >= +0 orders as its bits do: key 1 + bits.
+      if (!was) key = __float_as_uint(metric) + 1u;
+      nan = !was && metric != metric;
     }
     // Pivot: the first lane holding the maximum (a NaN wins, as in
-    // torch.argmax).
-    float mx = metric;
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-    const unsigned nan_lanes = __ballot_sync(FULL, metric != metric);
-    const unsigned hit =
-        nan_lanes ? nan_lanes : __ballot_sync(FULL, metric >= mx);
+    // torch.argmax); with no unused candidate, the first candidate.
+    const unsigned nan_lanes = __ballot_sync(FULL, nan);
+    const unsigned hit = nan_lanes ? nan_lanes
+                                   : __ballot_sync(FULL, key == __reduce_max_sync(FULL, key));
     const int pl = __ffs(hit) - 1;
     const int p = __shfl_sync(FULL, r, pl);
     const float2 pv = shfl2(v, pl);
@@ -382,17 +449,35 @@ __device__ float2 solve(WarpSmem& s, const int* __restrict__ plan,
       if (lane < nc) keep[sp[3] + lane] = f;
     }
     used |= 1u << p;
-    const float2 prow = s.m[p * LD + lane];
+    const float2 prow = s.m[at(p, lane)];
+    // Each live candidate's multiplier and row, for broadcast reads.
+    if (live) {
+      s.v[lane] = f;
+      s.u.sv.rows[lane] = r;
+    }
+    unsigned todo = __ballot_sync(FULL, live);
     __syncwarp();
-    for (int i = 0; i < nc; ++i) {
-      const float2 fi = shfl2(f, i);
-      const int ri = __shfl_sync(FULL, r, i);
-      const bool li = __shfl_sync(FULL, (int)live, i);
-      if (li) {
-        float2 mv = s.m[ri * LD + lane];
-        mv.x -= fi.x * prow.x - fi.y * prow.y;
-        mv.y -= fi.x * prow.y + fi.y * prow.x;
-        s.m[ri * LD + lane] = mv;
+    // Two candidates at a time, both rows read before either is written
+    // (the rows are distinct).
+    while (todo) {
+      const int i = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float2 fi = s.v[i];
+      const int ei = at(s.u.sv.rows[i], lane);
+      if (todo) {
+        const int j = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float2 fj = s.v[j];
+        const int ej = at(s.u.sv.rows[j], lane);
+        float2 mi = s.m[ei], mj = s.m[ej];
+        eliminate(mi, fi, prow);
+        eliminate(mj, fj, prow);
+        s.m[ei] = mi;
+        s.m[ej] = mj;
+      } else {
+        float2 mi = s.m[ei];
+        eliminate(mi, fi, prow);
+        s.m[ei] = mi;
       }
     }
     __syncwarp();
@@ -402,15 +487,15 @@ __device__ float2 solve(WarpSmem& s, const int* __restrict__ plan,
 
 // The last solve()'s elimination replayed on the rhs column assemble_rhs()
 // wrote: each step takes its kept pivot and multipliers and updates its
-// live candidates' rhs as solve() updates their rows (lane i owns candidate
-// i: the rows are distinct, and the pivot row is not written); then
-// back-substitution.
+// live candidates' rhs as solve() updates their rows, lane i candidate i
+// at once (the rows are distinct, and the pivot row is not written, so
+// there is no loop over candidates to shorten); then back-substitution.
 __device__ float2 replay(WarpSmem& s, const int* __restrict__ plan,
                          const float2* keep, int lane) {
   const int n_step = plan[H_NSTEP];
   const int* steps = plan + plan[H_STEPS];
   const int* maps = plan + plan[H_MAPS];
-  if (lane < NV) s.map[0][lane] = plan[plan[H_MAP0] + lane];
+  if (lane < NV) s.u.sv.map[0][lane] = plan[plan[H_MAP0] + lane];
   __syncwarp();
   unsigned used = 0u;
   int level = 0, cur = 0;
@@ -419,15 +504,13 @@ __device__ float2 replay(WarpSmem& s, const int* __restrict__ plan,
     const int want = sp[0], nc = sp[2];
     for (; level < want; ++level) next_level(s, maps, level, used, cur, lane);
     const int p = s.piv[st];
-    const float2 prow = s.m[p * LD + RHS];
+    const float2 prow = s.m[at(p, RHS)];
     if (lane < nc) {
-      const int r = s.map[cur][sp[4 + lane]];
+      const int r = s.u.sv.map[cur][sp[4 + lane]];
       if (r != p && !((used >> r) & 1u)) {
-        const float2 f = keep[sp[3] + lane];
-        float2 mv = s.m[r * LD + RHS];
-        mv.x -= f.x * prow.x - f.y * prow.y;
-        mv.y -= f.x * prow.y + f.y * prow.x;
-        s.m[r * LD + RHS] = mv;
+        float2 mv = s.m[at(r, RHS)];
+        eliminate(mv, keep[sp[3] + lane], prow);
+        s.m[at(r, RHS)] = mv;
       }
     }
     used |= 1u << p;
@@ -439,8 +522,8 @@ __device__ float2 replay(WarpSmem& s, const int* __restrict__ plan,
 // The evaluation point (S2: its split's value; the homogeneous 1 stays 1).
 template <bool S2 = false>
 __device__ __forceinline__ void set_point(WarpSmem& s, float2 x, int lane) {
-  s.xe[lane] = lane < NV ? operand<S2>(x)
-                         : make_float2(lane == NV ? 1.0f : 0.0f, 0.0f);
+  s.v[lane] = lane < NV ? operand<S2>(x)
+                        : make_float2(lane == NV ? 1.0f : 0.0f, 0.0f);
   __syncwarp();
 }
 
@@ -448,154 +531,161 @@ __device__ __forceinline__ float2 axpy(float2 x, float a, float2 k) {
   return make_float2(x.x + a * k.x, x.y + a * k.y);
 }
 
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
 hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
                 float* __restrict__ flags, const float2* __restrict__ efg,
-                const int* __restrict__ plan, int n_paths, Params prm) {
+                const int* __restrict__ plan, int n_paths, Params prm,
+                int* __restrict__ next_path) {
   __shared__ WarpSmem smem[WARPS];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int path = blockIdx.x * WARPS + warp;
-  if (path >= n_paths) return;
   WarpSmem& s = smem[warp];
   float2* keep = nullptr;
   if constexpr (REPLAY) keep = keep_area(warp);
   const int q_n = plan[H_Q];
-
-  float2 e[2], f[2], g[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int q = lane + 32 * j;
-    const float2* base = efg + (size_t)path * 3 * q_n;
-    e[j] = q < q_n ? base[q] : make_float2(0.f, 0.f);
-    f[j] = q < q_n ? base[q_n + q] : make_float2(0.f, 0.f);
-    g[j] = q < q_n ? base[2 * q_n + q] : make_float2(0.f, 0.f);
-  }
-  const float2 zero = make_float2(0.f, 0.f);
-  float2 xv = lane < NV ? x[(size_t)path * NV + lane] : zero;
-  float2 xlv = lane < NV ? xl[(size_t)path * NV + lane] : zero;
-  float* fl = flags + (size_t)path * 8;
-  float t = fl[0], dt = fl[1], succ = fl[2], ez = fl[3], chk = fl[4];
-  float inf = fl[5], prn = fl[6], nst = fl[7];
-
   bool is_depth = false;
   const int* depth = plan + plan[H_DEPTH];
   for (int d = 0; d < 8; ++d) is_depth |= depth[d] == lane;
+  const float2 zero = make_float2(0.f, 0.f);
 
-  // CPH: whether s holds the last step's corrector elimination.  Nothing is
-  // kept across launches, as the JAX kernel resets its flag at each launch.
-  bool handoff = false;
-  // RK stage k >= 2 at point xp: a full solve, or (RKJ) stage 1's
-  // elimination replayed on the -Ht there.  Every RK-stage evaluation runs
-  // under the split of SPLIT2.
-  auto stage = [&](float2 xp) {
-    set_point<SPLIT2>(s, xp, lane);
-    if constexpr (RKJ) {
-      assemble_rhs<SPLIT2>(s, plan, false, lane);
-      return replay(s, plan, keep, lane);
-    } else {
-      assemble<SPLIT2>(s, plan, false, lane);
-      return solve<REPLAY>(s, plan, keep, lane);
-    }
-  };
+  for (;;) {
+    // The next path of the queue.
+    int path = 0;
+    if (lane == 0) path = atomicAdd(next_path, 1);
+    path = __shfl_sync(FULL, path, 0);
+    if (path >= n_paths) break;
 
-  for (int it = 0; it < prm.niter; ++it) {
-    const bool conv = t >= 1.0f || 1.0f - t <= prm.t_eps;
-    if (conv || inf > 0.5f || prn > 0.5f) break;
-    if (fabsf(1.0f - t) <= prm.ez_factor) ez = 1.0f;
-    if (prm.truncate) {
-      // min over the depths <= 0, where a NaN depth makes the min NaN.
-      const bool any_nan = __any_sync(FULL, is_depth && xv.x != xv.x);
-      const bool any_bad = __any_sync(FULL, is_depth && xv.x <= 0.0f);
-      if (chk > 0.5f && t > 0.0f) chk = (any_bad && !any_nan) ? 1.0f : 0.0f;
-      if (t > 0.95f && chk > 0.5f) {
-        prn = 1.0f;
-        break;
-      }
+    float2 e[2], f[2], g[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = lane + 32 * j;
+      const float2* base = efg + (size_t)path * 3 * q_n;
+      e[j] = q < q_n ? base[q] : zero;
+      f[j] = q < q_n ? base[q_n + q] : zero;
+      g[j] = q < q_n ? base[2 * q_n + q] : zero;
     }
-    const float dtc = ez > 0.5f ? fminf(dt, fabsf(1.0f - t)) : fminf(dt, fabsf(0.95f - t));
-    const float half = 0.5f * dtc;
-    const float tb = t + half;
-    const float tc = tb + half;
+    float2 xv = lane < NV ? x[(size_t)path * NV + lane] : zero;
+    float2 xlv = lane < NV ? xl[(size_t)path * NV + lane] : zero;
+    float* fl = flags + (size_t)path * 8;
+    float t = fl[0], dt = fl[1], succ = fl[2], ez = fl[3], chk = fl[4];
+    float inf = fl[5], prn = fl[6], nst = fl[7];
 
-    // Predictor: RK4, or Kutta's rule (ORDER 3) or the midpoint rule (2).
-    fill(s, e, f, g, t, true, q_n, lane);
-    set_point<SPLIT2>(s, xv, lane);
-    float2 k1;
-    if (CPH && handoff) {
-      assemble_rhs<SPLIT2>(s, plan, false, lane);
-      k1 = replay(s, plan, keep, lane);
-    } else {
-      assemble<SPLIT2>(s, plan, false, lane);
-      k1 = solve<REPLAY>(s, plan, keep, lane);
-    }
-    fill(s, e, f, g, tb, true, q_n, lane);
-    const float2 k2 = stage(axpy(xv, half, k1));
-    float2 cw;
-    if constexpr (ORDER == 2) {
-      cw = axpy(xv, dtc, k2);
-    } else if constexpr (ORDER == 3) {
-      fill(s, e, f, g, tc, true, q_n, lane);
-      const float2 k3 = stage(make_float2(xv.x - dtc * k1.x + 2.0f * dtc * k2.x,
-                                          xv.y - dtc * k1.y + 2.0f * dtc * k2.y));
-      const float sixth = dtc / 6.0f;
-      cw = make_float2(xv.x + sixth * (k1.x + 4.0f * k2.x + k3.x),
-                       xv.y + sixth * (k1.y + 4.0f * k2.y + k3.y));
-    } else {
-      const float2 k3 = stage(axpy(xv, half, k2));
-      fill(s, e, f, g, tc, true, q_n, lane);
-      const float2 k4 = stage(axpy(xv, dtc, k3));
-      const float sixth = dtc / 6.0f;
-      cw = make_float2(xv.x + sixth * (k1.x + 2.0f * (k2.x + k3.x) + k4.x),
-                       xv.y + sixth * (k1.y + 2.0f * (k2.y + k3.y) + k4.y));
-    }
-
-    // Newton corrector at frozen t_c; under CJR, iterations from the
-    // cjr-th on replay the last full iteration's elimination.
-    fill(s, e, f, g, tc, false, q_n, lane);
-    bool ok = false, diverged = false;
-    for (int ci = 0; ci < prm.mcs; ++ci) {
-      set_point(s, cw, lane);
-      float2 dx;
-      if (CJR && ci >= prm.cjr) {
-        assemble_rhs(s, plan, true, lane);
-        dx = replay(s, plan, keep, lane);
+    // CPH: whether s holds the last step's corrector elimination.  Nothing
+    // is kept across paths or launches, as the JAX kernel resets its flag
+    // at each launch.
+    bool handoff = false;
+    // RK stage k >= 2 at point xp: a full solve, or (RKJ) stage 1's
+    // elimination replayed on the -Ht there.  Every RK-stage evaluation
+    // runs under the split of SPLIT2.
+    auto stage = [&](float2 xp) {
+      set_point<SPLIT2>(s, xp, lane);
+      if constexpr (RKJ) {
+        assemble_rhs<SPLIT2>(s, plan, false, lane);
+        return replay(s, plan, keep, lane);
       } else {
-        assemble(s, plan, true, lane);
-        dx = solve<REPLAY>(s, plan, keep, lane);
+        assemble<SPLIT2>(s, plan, false, lane);
+        return solve<REPLAY>(s, plan, keep, lane);
       }
-      cw = make_float2(cw.x - dx.x, cw.y - dx.y);
-      const float sq_dx = warp_sum(dx.x * dx.x + dx.y * dx.y);
-      const float sq_x = warp_sum(cw.x * cw.x + cw.y * cw.y);
-      ok = sq_dx < prm.tol_sq * sq_x;
-      diverged = sq_x > prm.inf_sq;
-      if (ok || diverged) break;
+    };
+
+    for (int it = 0; it < prm.niter; ++it) {
+      const bool conv = t >= 1.0f || 1.0f - t <= prm.t_eps;
+      if (conv || inf > 0.5f || prn > 0.5f) break;
+      if (fabsf(1.0f - t) <= prm.ez_factor) ez = 1.0f;
+      if (prm.truncate) {
+        // min over the depths <= 0, where a NaN depth makes the min NaN.
+        const bool any_nan = __any_sync(FULL, is_depth && xv.x != xv.x);
+        const bool any_bad = __any_sync(FULL, is_depth && xv.x <= 0.0f);
+        if (chk > 0.5f && t > 0.0f) chk = (any_bad && !any_nan) ? 1.0f : 0.0f;
+        if (t > 0.95f && chk > 0.5f) {
+          prn = 1.0f;
+          break;
+        }
+      }
+      const float dtc = ez > 0.5f ? fminf(dt, fabsf(1.0f - t)) : fminf(dt, fabsf(0.95f - t));
+      const float half = 0.5f * dtc;
+      const float tb = t + half;
+      const float tc = tb + half;
+
+      // Predictor: RK4, or Kutta's rule (ORDER 3) or the midpoint rule (2).
+      fill(s, e, f, g, t, true, q_n, lane);
+      set_point<SPLIT2>(s, xv, lane);
+      float2 k1;
+      if (CPH && handoff) {
+        assemble_rhs<SPLIT2>(s, plan, false, lane);
+        k1 = replay(s, plan, keep, lane);
+      } else {
+        assemble<SPLIT2>(s, plan, false, lane);
+        k1 = solve<REPLAY>(s, plan, keep, lane);
+      }
+      fill(s, e, f, g, tb, true, q_n, lane);
+      const float2 k2 = stage(axpy(xv, half, k1));
+      float2 cw;
+      if constexpr (ORDER == 2) {
+        cw = axpy(xv, dtc, k2);
+      } else if constexpr (ORDER == 3) {
+        fill(s, e, f, g, tc, true, q_n, lane);
+        const float2 k3 = stage(make_float2(xv.x - dtc * k1.x + 2.0f * dtc * k2.x,
+                                            xv.y - dtc * k1.y + 2.0f * dtc * k2.y));
+        const float sixth = dtc / 6.0f;
+        cw = make_float2(xv.x + sixth * (k1.x + 4.0f * k2.x + k3.x),
+                         xv.y + sixth * (k1.y + 4.0f * k2.y + k3.y));
+      } else {
+        const float2 k3 = stage(axpy(xv, half, k2));
+        fill(s, e, f, g, tc, true, q_n, lane);
+        const float2 k4 = stage(axpy(xv, dtc, k3));
+        const float sixth = dtc / 6.0f;
+        cw = make_float2(xv.x + sixth * (k1.x + 2.0f * (k2.x + k3.x) + k4.x),
+                         xv.y + sixth * (k1.y + 2.0f * (k2.y + k3.y) + k4.y));
+      }
+
+      // Newton corrector at frozen t_c; under CJR, iterations from the
+      // cjr-th on replay the last full iteration's elimination.
+      fill(s, e, f, g, tc, false, q_n, lane);
+      bool ok = false, diverged = false;
+      for (int ci = 0; ci < prm.mcs; ++ci) {
+        set_point(s, cw, lane);
+        float2 dx;
+        if (CJR && ci >= prm.cjr) {
+          assemble_rhs(s, plan, true, lane);
+          dx = replay(s, plan, keep, lane);
+        } else {
+          assemble(s, plan, true, lane);
+          dx = solve<REPLAY>(s, plan, keep, lane);
+        }
+        cw = make_float2(cw.x - dx.x, cw.y - dx.y);
+        const float sq_dx = warp_sum(dx.x * dx.x + dx.y * dx.y);
+        const float sq_x = warp_sum(cw.x * cw.x + cw.y * cw.y);
+        ok = sq_dx < prm.tol_sq * sq_x;
+        diverged = sq_x > prm.inf_sq;
+        if (ok || diverged) break;
+      }
+
+      // Outcome bookkeeping.
+      const bool good = !diverged && ok, fail = !diverged && !ok;
+      if (good || diverged) {
+        xv = cw;
+        t = tc;
+      } else {
+        xv = xlv;
+      }
+      if (good) xlv = cw;
+      const float succ2 = good ? succ + 1.0f : (fail ? 0.0f : succ);
+      const bool bump = good && succ2 >= (float)prm.steps_inc;
+      dt = fail ? dtc * 0.5f : (bump ? dtc * 2.0f : dtc);
+      succ = bump ? 0.0f : succ2;
+      if (diverged) inf = 1.0f;
+      nst += 1.0f;
+      if constexpr (CPH) handoff = !fail;  // no roll-back
     }
 
-    // Outcome bookkeeping.
-    const bool good = !diverged && ok, fail = !diverged && !ok;
-    if (good || diverged) {
-      xv = cw;
-      t = tc;
-    } else {
-      xv = xlv;
+    if (lane < NV) {
+      x[(size_t)path * NV + lane] = xv;
+      xl[(size_t)path * NV + lane] = xlv;
     }
-    if (good) xlv = cw;
-    const float succ2 = good ? succ + 1.0f : (fail ? 0.0f : succ);
-    const bool bump = good && succ2 >= (float)prm.steps_inc;
-    dt = fail ? dtc * 0.5f : (bump ? dtc * 2.0f : dtc);
-    succ = bump ? 0.0f : succ2;
-    if (diverged) inf = 1.0f;
-    nst += 1.0f;
-    if constexpr (CPH) handoff = !fail;  // no roll-back
-  }
-
-  if (lane < NV) {
-    x[(size_t)path * NV + lane] = xv;
-    xl[(size_t)path * NV + lane] = xlv;
-  }
-  if (lane == 0) {
-    fl[0] = t; fl[1] = dt; fl[2] = succ; fl[3] = ez;
-    fl[4] = chk; fl[5] = inf; fl[6] = prn; fl[7] = nst;
+    if (lane == 0) {
+      fl[0] = t; fl[1] = dt; fl[2] = succ; fl[3] = ez;
+      fl[4] = chk; fl[5] = inf; fl[6] = prn; fl[7] = nst;
+    }
   }
 }
 
@@ -614,47 +704,71 @@ solve_replay_kernel(const float2* __restrict__ m, const float2* __restrict__ rhs
   WarpSmem& s = smem[warp];
   float2* keep = keep_area(warp);
   for (int row = 0; row < NV; ++row)
-    s.m[row * LD + lane] = m[((size_t)i * NV + row) * 32 + lane];
+    s.m[at(row, lane)] = m[((size_t)i * NV + row) * 32 + lane];
   __syncwarp();
   const float2 xs = solve<true>(s, plan, keep, lane);
   if (lane < NV) {
     x_solve[(size_t)i * NV + lane] = xs;
-    s.m[lane * LD + RHS] = rhs[(size_t)i * NV + lane];
+    s.m[at(lane, RHS)] = rhs[(size_t)i * NV + lane];
   }
   __syncwarp();
   const float2 xr = replay(s, plan, keep, lane);
   if (lane < NV) x_replay[(size_t)i * NV + lane] = xr;
 }
 
+// The tracker's dynamic shared memory (a replaying build's multipliers),
+// allowed above the default limit, and the largest shared-memory carveout.
+cudaError_t configure_track(int* smem) {
+  *smem = REPLAY ? WARPS * FSLOTS * (int)sizeof(float2) : 0;
+  if (REPLAY) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hc_track_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaFuncSetAttribute(hc_track_kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched), or -1 if
-// the step variant asked for is not the one this library was built as.
+// Resident blocks per SM of this build's tracker on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its warps per block;
+// returns a CUDA error code (0 = success).
+extern "C" int hc_track_blocks_per_sm(int* blocks, int* warps) {
+  int smem = 0;
+  cudaError_t err = configure_track(&smem);
+  if (err != cudaSuccess) return (int)err;
+  *warps = WARPS;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, hc_track_kernel,
+                                                      32 * WARPS, smem);
+  return (int)err;
+}
+
+// Launch `blocks` persistent blocks on `stream`, taking paths from the
+// int32 counter *next_path (zero at launch); returns cudaGetLastError()
+// (0 = launched), or -1 if the step variant asked for is not the one this
+// library was built as.
 extern "C" int hc_track_launch(void* x, void* xl, void* flags, const void* efg,
                                const void* plan, int n_paths, int niter,
                                int mcs, int steps_inc, int truncate,
                                float ez_factor, float t_eps, float tol_sq,
                                float inf_sq, int order, int cjr, int cph,
-                               int rkj, int split2, int abc, void* stream) {
+                               int rkj, int split2, int abc, int blocks,
+                               void* next_path, void* stream) {
   if (order != ORDER || (cjr > 0) != CJR || (cph != 0) != CPH ||
       (rkj != 0) != RKJ || (split2 != 0) != SPLIT2 || (abc != 0) != ABC)
     return -1;
   if (n_paths <= 0) return 0;
+  if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   Params prm{niter, mcs, steps_inc, truncate, ez_factor, t_eps, tol_sq, inf_sq,
              cjr};
-  const int blocks = (n_paths + WARPS - 1) / WARPS;
   int smem = 0;
-  if constexpr (REPLAY) {
-    // Above 48 KB with the static part: dynamic shared memory must be
-    // allowed explicitly.
-    smem = WARPS * FSLOTS * (int)sizeof(float2);
-    const cudaError_t err = cudaFuncSetAttribute(
-        hc_track_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const cudaError_t err = configure_track(&smem);
+  if (err != cudaSuccess) return (int)err;
   hc_track_kernel<<<blocks, 32 * WARPS, smem, (cudaStream_t)stream>>>(
       (float2*)x, (float2*)xl, (float*)flags, (const float2*)efg,
-      (const int*)plan, n_paths, prm);
+      (const int*)plan, n_paths, prm, (int*)next_path);
   return (int)cudaGetLastError();
 }
 

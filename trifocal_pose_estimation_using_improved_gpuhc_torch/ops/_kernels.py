@@ -8,10 +8,13 @@ several at once, one nvcc each, all started together.  Nothing here runs at
 import: the CPU tests import this module without a compiler or a card.
 
 ``hc_track`` launches ``csrc/hc_track.cu`` on PyTorch's current stream and
-counts its launches in ``hc_track.launches``.  Its variants (predictor
-order, the kept-elimination replays of corrector_jacobian_reuse,
-predictor_handoff and rk_jacobian_reuse, the RK stages' 2-term split of
-eval_precision "split3_rk2" and the pair basis "abc") are compile-time
+counts its launches in ``hc_track.launches``: a persistent grid, as many
+blocks as fit on the card at once (``hc_track_blocks_per_sm``, the kernel's
+occupancy query), whose warps take paths from a counter in device memory.
+Its variants (predictor order, the kept-elimination replays of
+corrector_jacobian_reuse, predictor_handoff and rk_jacobian_reuse, the RK
+stages' 2-term split of eval_precision "split3_rk2" and the pair basis
+"abc") are compile-time
 choices: one library per variant, built when a configuration first needs
 it.  eval_structure picks no build: its values are one function here.
 """
@@ -25,7 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -155,9 +158,41 @@ def _hc_track_lib(cfg: HCConfig) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, i, i, i,
-                       i, i, p]
+                       i, i, i, p, p]
         fn.restype = ctypes.c_int
+        occ = lib.hc_track_blocks_per_sm
+        occ.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        occ.restype = ctypes.c_int
     return lib
+
+
+_occupancy: dict = {}  # (library, device index) -> (blocks per SM, warps)
+
+
+def _occupancy_of(lib: ctypes.CDLL, device: torch.device) -> Tuple[int, int]:
+    key = (lib._name, device.index)
+    if key not in _occupancy:
+        blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = lib.hc_track_blocks_per_sm(ctypes.byref(blocks),
+                                             ctypes.byref(warps))
+        if err != 0:
+            raise RuntimeError(f"hc_track occupancy query failed: CUDA error "
+                               f"{err}")
+        if blocks.value <= 0:
+            raise RuntimeError("hc_track: no block of the tracker fits on an "
+                               "SM of this device")
+        _occupancy[key] = (blocks.value, warps.value)
+    return _occupancy[key]
+
+
+def hc_track_blocks_per_sm(cfg: HCConfig, device=None) -> int:
+    """Resident blocks per SM of the build ``cfg`` runs, on ``device``
+    (default the current CUDA device): the occupancy query the wrapper
+    sizes its persistent grid by.  Raises if it is 0."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    return _occupancy_of(_hc_track_lib(cfg), dev)[0]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -174,14 +209,19 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
              efg: torch.Tensor, plan: torch.Tensor, niter: int,
-             cfg: HCConfig) -> None:
+             cfg: HCConfig, blocks: Optional[int] = None) -> None:
     """Run up to ``niter`` HC steps per path in place on CUDA tensors, in
     the step variant of ``cfg``.
 
     x, xl (B, 30) complex64 in position order; flags (B, 8) float32; efg
     (B, 3, Q) complex64; plan = FusedConstants.kernel_plan() as int32 on
     the same card, of the schedule program under rk_jacobian_reuse.
-    Raises on anything else or if the launch fails."""
+    Raises on anything else or if the launch fails.
+
+    The grid is persistent: ``blocks`` (default the SMs times the build's
+    resident blocks per SM, ``hc_track_blocks_per_sm``; never more than the
+    paths need), each warp taking paths from a counter zeroed per launch
+    until none is left.  The result does not depend on ``blocks``."""
     B = x.shape[0]
     q = efg.shape[-1]
     if efg.dim() != 3 or not 0 < q <= 64:
@@ -200,6 +240,14 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     if rkj and int(plan[3]) != 0:
         raise ValueError("rk_jacobian_reuse runs the schedule program only")
     lib = _hc_track_lib(cfg)
+    per_sm, warps = _occupancy_of(lib, x.device)
+    if blocks is None:
+        blocks = torch.cuda.get_device_properties(
+            x.device).multi_processor_count * per_sm
+    if blocks <= 0:
+        raise ValueError(f"blocks must be positive, got {blocks}")
+    blocks = min(int(blocks), -(-B // warps))
+    next_path = torch.zeros(1, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hc_track_launch(
@@ -209,7 +257,7 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
             float(cfg.end_zone_factor), float(cfg.t_converged_eps),
             float(cfg.corrector_tol_sq), float(cfg.infinity_norm_sq),
             order, int(cfg.corrector_jacobian_reuse), cph, rkj, split2, abc,
-            stream)
+            blocks, next_path.data_ptr(), stream)
     if err == -1:
         raise RuntimeError(f"{hc_track_label(cfg)} is not the variant its "
                            f"library was built as")

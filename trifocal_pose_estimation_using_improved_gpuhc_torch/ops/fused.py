@@ -80,6 +80,14 @@ CMAX = 32        # candidate slots per step in the kernel's plan: one lane each
 STEP_INTS = 4 + CMAX
 QMAX = 64        # parameter pairs the kernel holds per path
 FSLOTS = 352     # multipliers a replaying kernel keeps per path (all steps)
+MMAX = 288       # monomials the kernel's per-warp table holds
+
+
+def m_offset(row: int, col: int) -> int:
+    """Where entry (row, col) of the augmented system lies in the kernel's
+    shared memory: rows of 32 complex, column col ^ row (an XOR swizzle
+    that keeps a column's rows in distinct banks without padding)."""
+    return int(row) * WIDTH + (int(col) ^ int(row))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,13 +198,88 @@ class FusedConstants:
             n=n, q=len(f.pp_a),
         )
 
+    def monomials(self) -> np.ndarray:
+        """The evaluation's monomials in the kernel's table order, (M, 3)
+        position indices (a, b, c), c = -1 for a quadratic one: the
+        quadratic monomials x[qa] x[qb] (Hx terms' index m), then the cubic
+        ones (x[ca] x[cb]) x[cc] (rhs terms' index len(qa) + m)."""
+        quad = np.stack([self.qa, self.qb, np.full_like(self.qa, -1)], 1)
+        cub = np.stack([self.ca, self.cb, self.cc], 1)
+        return np.concatenate([quad, cub]).astype(np.int32)
+
+    def entry_terms(self):
+        """The evaluation's entries as term lists, in the order both
+        implementations sum them: Hx nonzero j (nz_order), then the rhs of
+        row r (entry NNZ + r); a term (coef, q, m) is coef * P[q] * x^m for
+        an Hx nonzero, coef * R[q] * x^m for an rhs, m indexing
+        ``monomials``."""
+        nq = len(self.qa)
+        hx = [[(self.hx_C[k, j], self.hx_q[k], self.hx_m[k])
+               for k in np.nonzero(self.hx_C[:, j])[0]]
+              for j in range(len(self.nz_row))]
+        rhs = [[(self.ht_C[k, r], self.ht_q[k], nq + self.ht_m[k])
+                for k in np.nonzero(self.ht_C[:, r])[0]]
+               for r in range(self.n)]
+        return hx + rhs
+
+    def lane_plan(self, rhs_only: bool = False):
+        """The evaluation's entries (``entry_terms``) dealt to the 32 lanes
+        of a warp, as the kernel runs them: largest first (ties in entry
+        order) onto the least-loaded lane (ties to the lowest lane), each
+        keeping its terms in order.  With ``rhs_only`` (a replay's rhs)
+        only the rhs entries.  Returns, per lane, its entries in the order
+        it runs them."""
+        sizes = [len(t) for t in self.entry_terms()]
+        first = len(self.nz_row) if rhs_only else 0
+        load = [0] * CMAX
+        lanes: List[List[int]] = [[] for _ in range(CMAX)]
+        for e in sorted(range(first, len(sizes)), key=lambda e: (-sizes[e], e)):
+            lane = min(range(CMAX), key=lambda i: (load[i], i))
+            lanes[lane].append(e)
+            load[lane] += sizes[e]
+        return lanes
+
+    def _packed_terms(self, rhs_only: bool) -> np.ndarray:
+        """The lane plan as one 32-bit word per term, lane i's k-th term
+        at word 32 + 32 k + i after the 32 lanes' term counts (unused
+        words 0): bits 0-8 the monomial (``monomials`` order), 9-14 the
+        pair q, 15 set on an entry's last term, 16-25 the entry's offset in
+        the kernel's swizzled system (``m_offset``), 26-31 the signed
+        integer coefficient."""
+        entries, nnz = self.entry_terms(), len(self.nz_row)
+        words: List[List[int]] = [[] for _ in range(CMAX)]
+        for lane, es in enumerate(self.lane_plan(rhs_only)):
+            for e in es:
+                off = (m_offset(self.nz_row[e], self.nz_col[e]) if e < nnz
+                       else m_offset(e - nnz, self.n))
+                for k, (co, q, m) in enumerate(entries[e]):
+                    if co != round(co) or not -32 <= co < 32:
+                        raise ValueError(f"coefficient {co} does not fit the "
+                                         f"kernel's 6-bit field")
+                    last = k == len(entries[e]) - 1
+                    words[lane].append(
+                        int(m) | int(q) << 9 | int(last) << 15
+                        | int(off) << 16 | (int(co) & 63) << 26)
+        out = np.zeros((1 + max(map(len, words)), CMAX), np.uint32)
+        out[0] = [len(w) for w in words]
+        for lane, w in enumerate(words):
+            out[1:1 + len(w), lane] = w
+        return out.reshape(-1).view(np.int32)
+
     def kernel_plan(self) -> np.ndarray:
         """Every table the CUDA kernel reads, packed into one int32 array
-        behind a 16-int header of (count, offset) fields."""
+        behind a 16-int header: counts, the offsets of the parts (map0, the
+        pivot steps, the row maps, the monomial table, the packed terms of
+        a whole evaluation and of the rhs alone, the depth positions), the
+        number of quadratic monomials and of monomials."""
         n = self.n
         if n != 30 or self.q > QMAX:
             raise ValueError(f"the kernel takes n=30 and Q<={QMAX}, got "
                              f"n={n}, Q={self.q}")
+        mono = self.monomials()
+        if len(mono) > MMAX:
+            raise ValueError(f"{len(mono)} monomials, the kernel holds "
+                             f"{MMAX}")
         steps = np.full((self.num_steps, STEP_INTS), -1, np.int32)
         for st in self.stages:
             for s, col, cand in zip(st.steps, st.cols, st.cands):
@@ -214,25 +297,13 @@ class FusedConstants:
         maps = np.full((len(self.maps), 32, 4), -1, np.int32)
         for lv, m in enumerate(self.maps):
             maps[lv, :len(m)] = m
-        # Per-row term lists: Hx terms (col, coef, q, a, b) grouped by
-        # column, and rhs terms (coef, q, a, b, c).
-        nz_terms, rhs_terms = self.term_lists()
-        hx_terms: List[List[Tuple]] = [[] for _ in range(n)]
-        for j, terms in enumerate(nz_terms):
-            hx_terms[self.nz_row[j]].extend(
-                (self.nz_col[j],) + t for t in terms)
-
-        def flat(lists):
-            off = np.cumsum([0] + [len(t) for t in lists]).astype(np.int32)
-            terms = np.array([t for ts in lists for t in ts], np.float64)
-            if np.any(terms != np.round(terms)):
-                raise ValueError("non-integer evaluation coefficient")
-            return off, terms.astype(np.int32).reshape(-1)
-
-        hx_off, hx_t = flat(hx_terms)
-        rhs_off, rhs_t = flat(rhs_terms)
+        # One word per monomial: its position indices a | b << 5 | c << 10
+        # (c = 31 for a quadratic one).
+        c = np.where(mono[:, 2] < 0, 31, mono[:, 2])
+        mono_words = (mono[:, 0] | mono[:, 1] << 5 | c << 10).astype(np.int32)
         parts = [self.map0.astype(np.int32), steps.reshape(-1),
-                 maps.reshape(-1), hx_off, hx_t, rhs_off, rhs_t,
+                 maps.reshape(-1), mono_words, self._packed_terms(False),
+                 self._packed_terms(True),
                  np.array(self.depth_rows, np.int32)]
         header = np.zeros(16, np.int32)
         header[:4] = (n, self.q, self.num_steps, len(self.maps))
@@ -240,26 +311,21 @@ class FusedConstants:
         for i, p in enumerate(parts):
             header[4 + i] = off
             off += p.size
+        header[11:13] = (len(self.qa), len(mono))
         return np.concatenate([header] + parts).astype(np.int32)
 
     def term_lists(self):
-        """The evaluation as term lists, in the order both implementations
-        sum them: per Hx nonzero (in nz_order) its (coef, q, a, b) terms,
-        coef * P[q] * x[a] * x[b]; per row its rhs (coef, q, a, b, c)
-        terms, coef * R[q] * x[a] * x[b] * x[c]."""
-        nz_terms = []
-        for j in range(len(self.nz_row)):
-            nz_terms.append([
-                (self.hx_C[k, j], self.hx_q[k], self.qa[self.hx_m[k]],
-                 self.qb[self.hx_m[k]])
-                for k in np.nonzero(self.hx_C[:, j])[0]])
-        rhs_terms = []
-        for r in range(self.n):
-            rhs_terms.append([
-                (self.ht_C[k, r], self.ht_q[k], self.ca[self.ht_m[k]],
-                 self.cb[self.ht_m[k]], self.cc[self.ht_m[k]])
-                for k in np.nonzero(self.ht_C[:, r])[0]])
-        return nz_terms, rhs_terms
+        """The evaluation as term lists with the monomials' positions, in
+        the order both implementations sum them: per Hx nonzero (in
+        nz_order) its (coef, q, a, b) terms, coef * P[q] * x[a] * x[b]; per
+        row its rhs (coef, q, a, b, c) terms, coef * R[q] * x[a] * x[b] *
+        x[c]."""
+        mono, nnz = self.monomials(), len(self.nz_row)
+        entries = self.entry_terms()
+        return ([[(co, q, *mono[m, :2]) for co, q, m in t]
+                 for t in entries[:nnz]],
+                [[(co, q, *mono[m]) for co, q, m in t]
+                 for t in entries[nnz:]])
 
 
 def _reduced_perm_rows(plan: redu.ReductionPlan):
