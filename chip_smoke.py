@@ -8,7 +8,8 @@ Phases (each prints its lines; any failure raises and exits nonzero):
   2. the kernel builds (csrc/hc_track.cu with nvcc, the default and each
      variant build of phases 8 and 9, all at once), their seconds, and per
      build its resident blocks per SM (the occupancy query that sizes the
-     kernel's persistent grid) and ptxas's resource lines;
+     kernel's persistent grid) and ptxas's resource lines (the phase
+     kernels' too for the default and the replaying build);
   3. the kernel against its plain PyTorch twin (ops/fused.track_plain) on
      the card, condensed solve ("reduced"): 1 hypothesis x all paths;
   4. the main path: one RANSAC round (view 0, seed 0, H=100 hypotheses)
@@ -39,24 +40,39 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      the abc round's real solutions beside the default's; eval_structure
      "gathered" and "merged", which run the default build, through an
      H=100 engine round whose launches are counted and whose paths equal
-     the default round's.
+     the default round's;
+ 10. K1's phases alone (ops/phases.py, the port of the JAX round's
+     microbenchmark kernel in tools/microbench_fused.py): for both solve
+     programs, on one hypothesis over the round's 30,700 paths, every
+     phase kernel (and the step, hc_track) at one iteration against its
+     plain version, bit for bit on every path; then, the launch counts
+     from 0, the timed table (PHASE_ITERS iterations, the step
+     PHASE_STEP_ITERS): per iteration over the batch, per path-iteration,
+     the share of a step, the bound and the share of it reached, blocks per
+     SM; the plain versions per iteration; and the step beside phase 4's
+     segmented ms over the round's largest step count (a sanity line).
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
 the round's 30,700 paths; and one per variant, with its segmented tracker's
 ms, the plain run over the same segments and plain_paths; the two
-structures repeat the reduced entry's numbers with their own launches),
+structures repeat the reduced entry's numbers with their own launches;
+one hc_phase entry per phase and program of phase 10, ms and plain_ms per
+iteration over the 30,700 paths, launches in the timed table and
+launches_per_round counted in that program's round of phase 4/5; the step's
+entry is named hc_track, phase "step", its launches_per_round the round's
+hc_track launches),
 and as the last line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 H_ROUND = 100
@@ -64,8 +80,9 @@ VIEW, SEED = 0, 0
 ABORT_CHUNK = 12
 FLIP_FRAC, SUP_FRAC = 0.005, 0.002  # the reference's cross-check bands
 REL_TOL = 1e-3                      # x on paths both versions converge
-# One H100 SXM at its 700 W limit: FP32 outside the tensor cores, HBM3.
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# Phase 10's iterations: fewer than tools/microbench_torch.py's 500 (64
+# for the step), to keep the script short.
+PHASE_ITERS, PHASE_STEP_ITERS = 100, 32
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "trifocal_pose_estimation_using_improved_gpuhc_torch/csrc/hc_track.cu"
 REPLACES = {
@@ -74,6 +91,7 @@ REPLACES = {
     "schedule": "trifocal_pose_estimation_using_improved_gpuhc_tpu/ops/"
                 "fused.py:873",
 }
+REPLACES_PHASE = "tools/microbench_fused.py:45"
 # The step variants of phase 8 and the branches of the JAX kernel they port.
 VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
             "cjr1": dict(corrector_jacobian_reuse=1),
@@ -131,142 +149,24 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
-def fill_steps(c):
-    """The symbolic pattern with fill of the constants' solve program, per
-    pivot step in program order: (step, column, rows, pattern), where rows
-    are the candidate rows not used by an earlier step (the pivot is one
-    of them) and pattern is the set of columns, rhs (c.n) included, that
-    the pivot row may hold after the eliminated column.
+def ptxas_lines(log):
+    """{kernel: ptxas's resource lines (registers, shared memory, spills)}
+    of one build's log; a phase kernel is named hc_phase_kernel<phase>."""
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops._kernels import (
+        PHASES,
+    )
 
-    The rows start with the Hx pattern plus the rhs.  As in the schedule
-    analysis (``ops/schedule.py``), fill is taken over the union: after a
-    step every unused candidate row holds the union of their patterns
-    minus the column, since any of them may be some path's pivot.  An
-    earlier-eliminated column is in no pattern: a row that was not a
-    candidate has a structural zero there (checked), and a candidate was
-    reduced to zero.  Later levels' rows are found through the row maps
-    with the first unused candidate as the pivot; after a group's first
-    step its rows share one pattern, so which one pivots does not change
-    the patterns."""
-    n = c.n
-    pats = [{n} for _ in range(n)]
-    for r, col in zip(c.nz_row, c.nz_col):
-        pats[int(r)].add(int(col))
-    used, rmap, level, out = set(), [int(r) for r in c.map0], 0, []
-    for st in c.stages:
-        while level < st.level:
-            rmap = [[rmap[s] for s in src if s >= 0 and rmap[s] not in used][k]
-                    for *src, k in c.maps[level].tolist()]
-            level += 1
-        picks = []
-        for s, col, cand in zip(st.steps, st.cols, st.cands):
-            rows = [rmap[i] for i in cand if rmap[i] not in used]
-            if any(col in pats[r] for r in set(range(n)) - used - set(rows)):
-                raise ValueError(f"step {s}: a non-candidate row holds "
-                                 f"column {col}")
-            pattern = set().union(*(pats[r] for r in rows)) - {col}
-            picks.append((s, col, rows, pattern))
-        for _, _, rows, pattern in picks:
-            used.add(rows[0])
-            for r in rows[1:]:
-                pats[r] = set(pattern)
-        out.extend(picks)
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"hc_phase_kernelILi(\d+)E", line)
+            fn = (f"hc_phase_kernel<{PHASES[int(m.group(1))]}>" if m
+                  else "hc_track_kernel" if "hc_track_kernel" in line
+                  else "solve_replay_kernel")
+            out[fn] = []
+        elif fn and ("registers" in line or "spill" in line):
+            out[fn].append(line.split(":", 1)[-1].strip())
     return out
-
-
-def assembly_flops(c, rhs_only=False):
-    """FP32 operations of one evaluation (or, rhs_only, of a replay's rhs),
-    counted as the function needs them: each distinct monomial once (6 per
-    complex product: one for a quadratic monomial, two for a cubic one),
-    each combo P[q] x^m once (6), and per term the integer scale and the
-    complex add (4)."""
-    nz_terms, rhs_terms = c.term_lists()
-    parts = [(rhs_terms, c.ht_m, c.ht_C, 12)]
-    if not rhs_only:
-        parts.append((nz_terms, c.hx_m, c.hx_C, 6))
-    return sum(per_mono * len(np.unique(m)) + 6 * int((C != 0).any(1).sum())
-               + 4 * sum(map(len, terms)) for terms, m, C, per_mono in parts)
-
-
-def solve_flops(c):
-    """FP32 operations of one assemble + solve of the constants' program.
-
-    Assembly: ``assembly_flops``.  Solve, per step (``fill_steps``): the
-    pivot metric of each unused candidate (one add), the reciprocal
-    (3 + 2), and per other unused candidate the multiplier (6) and the
-    update of the pivot row's pattern (8 per entry); back-substitution,
-    per step, a complex dot over the pattern's columns (8 each), the rhs
-    (2) and the scaled result (11)."""
-    flops = assembly_flops(c)
-    for _, _, rows, pattern in fill_steps(c):
-        w = len(pattern)
-        flops += len(rows) + 5 + (len(rows) - 1) * (6 + 8 * w)
-        flops += 8 * (w - 1) + 2 + 11
-    return flops
-
-
-def replay_flops(c):
-    """FP32 operations of one replay of a kept elimination on a new rhs:
-    the rhs-only assembly (``assembly_flops``), per step the update of
-    each other unused candidate's rhs (8), and the back-substitution of
-    ``solve_flops``."""
-    flops = assembly_flops(c, rhs_only=True)
-    for _, _, rows, pattern in fill_steps(c):
-        flops += 8 * (len(rows) - 1) + 8 * (len(pattern) - 1) + 2 + 11
-    return flops
-
-
-def split_flops(c, rhs_only=False):
-    """FP32 operations that eval_precision "split3_rk2" adds to one RK-stage
-    assembly (or, rhs_only, to a replay's rhs), counted as the function
-    needs them (the JAX package's _eval_core with _sdot2): the point's
-    split, a subtraction and an addition per real (4 per entry); the same
-    once per distinct monomial the evaluation uses (4); the low part of
-    each combo's value v = P x^m, once per combo (2); per term the second
-    sum (4); per entry the add of the two sums (2).  The kernel splits
-    each term's monomial and value again, redundant work it is not
-    credited for.  The bf16 conversions are conversions, not counted."""
-    nz_terms, rhs_terms = c.term_lists()
-    monos, combos = len(np.unique(c.ht_m)), len(c.ht_q)
-    terms, entries = sum(map(len, rhs_terms)), c.n
-    if not rhs_only:
-        monos += len(np.unique(c.hx_m))
-        combos += len(c.hx_q)
-        terms += sum(map(len, nz_terms))
-        entries += len(nz_terms)
-    return 4 * c.n + 4 * monos + 2 * combos + 4 * terms + 2 * entries
-
-
-# Per path-step outside the solves: the RK stages' fills of P and dP/dt
-# (one per distinct t: 3 for rk4 and rk3, 2 for rk2) and the corrector's
-# fill of P, per pair (two-point basis 20 and 10, "abc" 14 and 8), and the
-# stage points and the RK combination, by predictor order.
-RK_FILLS = {4: 3, 3: 3, 2: 2}
-FILL_FLOPS = {"efg": (20, 10), "abc": (14, 8)}
-STEP_FLOPS = {4: 740, 3: 740, 2: 260}
-
-
-def tracker_bound(c, work, n_paths, order=4, basis="efg"):
-    """(bound_ms, bound_by) of one tracker call over n_paths: the larger of
-    the FP32 operations its paths really did (work: the path-steps,
-    corrector iterations, full solves and replays, and those of them that
-    were split RK-stage evaluations, counted by track_plain, which the
-    kernel matches bit for bit) over 67 TFLOP/s and its bytes (state,
-    flags and coefficients read once, state and flags written once, the
-    plan read once) over 3.35 TB/s."""
-    rk_fill, corr_fill = FILL_FLOPS[basis]
-    per_pair = RK_FILLS[order] * rk_fill + corr_fill
-    # A corrector iteration beyond its solve: the update and two norms.
-    flops = (work["solves"] * solve_flops(c)
-             + work.get("replays", 0) * replay_flops(c)
-             + work.get("split_solves", 0) * split_flops(c)
-             + work.get("split_replays", 0) * split_flops(c, rhs_only=True)
-             + work["steps"] * (per_pair * c.q + STEP_FLOPS[order])
-             + work["newton"] * 240)
-    nbytes = n_paths * (4 * 30 * 8 + 2 * 8 * 4 + 3 * c.q * 8) \
-        + 4 * c.kernel_plan().size
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def main() -> int:
@@ -277,8 +177,12 @@ def main() -> int:
     from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
         _kernels,
         fused,
+        phases,
         ransac,
         segmented,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops.bound import (
+        tracker_bound,
     )
     from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
         EngineConfig,
@@ -312,23 +216,30 @@ def main() -> int:
           + ", ".join(f"{k} {v:.2f} s" for k, v in
                       _kernels.build_seconds.items()) + ")", flush=True)
     # Per build: its resident blocks per SM (the occupancy query its
-    # persistent grid is sized by) and ptxas's lines for the tracker.
-    occupancy = {}
+    # persistent grid is sized by) and ptxas's lines for the tracker; for
+    # the default and the corrector_jacobian_reuse build (phase 10's), also
+    # for each phase kernel.
+    occupancy, phase_ptxas = {}, {}
+    phase_labels = {_kernels.hc_track_label(phases.phase_config(hc, p))
+                    for p in _kernels.PHASES}
     for c_ in [hc, *variants.values()]:
         label = _kernels.hc_track_label(c_)
+        if label in occupancy:
+            continue
         occupancy[label] = _kernels.hc_track_blocks_per_sm(c_, dev)
-        ptxas, fn = [], "?"
-        for line in _kernels.build_logs.get(label, "").splitlines():
-            if "Compiling entry function" in line:
-                fn = ("solve_replay" if "solve_replay" in line
-                      else "hc_track_kernel")
-            elif fn == "hc_track_kernel" and ("registers" in line
-                                              or "spill" in line):
-                ptxas.append(line.split(":", 1)[-1].strip())
+        ptxas = ptxas_lines(_kernels.build_logs.get(label, ""))
+        phase_ptxas[(label, "step")] = "; ".join(
+            ptxas.get("hc_track_kernel", []))
         print(f"build {label}: blocks_per_sm {occupancy[label]} "
               f"({torch.cuda.get_device_properties(dev).multi_processor_count}"
-              f" SMs); ptxas hc_track_kernel: {'; '.join(ptxas)}",
-              flush=True)
+              f" SMs); ptxas hc_track_kernel: "
+              f"{phase_ptxas[(label, 'step')]}", flush=True)
+        if label in phase_labels:
+            for p in _kernels.PHASES:
+                line = "; ".join(ptxas.get(f"hc_phase_kernel<{p}>", []))
+                phase_ptxas[(label, p)] = line
+                print(f"build {label}: ptxas hc_phase_kernel<{p}>: {line}",
+                      flush=True)
 
     engine = eng.TrifocalPoseEngine(cfg)
     assert engine.device == dev, engine.device
@@ -378,8 +289,10 @@ def main() -> int:
         assert pe.within(cfg.ransac), pe
 
     def counted_round(e):
-        """One round through engine e, the launches counted from 0."""
+        """One round through engine e, the launches (hc_track's returned,
+        hc_phase's in hc_phase.phase_launches) counted from 0."""
         _kernels.hc_track.launches = 0
+        _kernels.hc_phase.phase_launches = {}
         rr = e.run_round(view, SEED, H_ROUND)
         return rr, _kernels.hc_track.launches
 
@@ -406,7 +319,10 @@ def main() -> int:
     # 4. The main path: one RANSAC round through the engine.
     engine.run_round(view, SEED, H_ROUND)  # warm-up
     rr, launches = counted_round(engine)
+    phase_round = {"reduced": sum(_kernels.hc_phase.phase_launches.values())}
     round_line(f"round H={H_ROUND} (segmented, compaction)", rr, launches)
+    print(f"round H={H_ROUND}: hc_phase launches {phase_round['reduced']}",
+          flush=True)
     assert launches > 0, "the round did not launch the kernel"
     pose_line(rr)
     plain_engine = eng.TrifocalPoseEngine(cfg, track_fn=plain_track)
@@ -467,8 +383,11 @@ def main() -> int:
     engine_s = eng.TrifocalPoseEngine(cfg_s)
     engine_s.run_round(view, SEED, H_ROUND)  # warm-up
     rr_s, launches_s = counted_round(engine_s)
+    phase_round["schedule"] = sum(_kernels.hc_phase.phase_launches.values())
     round_line(f"round H={H_ROUND} schedule (segmented, compaction)", rr_s,
                launches_s)
+    print(f"round H={H_ROUND} schedule: hc_phase launches "
+          f"{phase_round['schedule']}", flush=True)
     assert launches_s > 0, "the schedule round did not launch the kernel"
     pose_line(rr_s)
     k_schedule = dict(program="schedule", launches=launches_s,
@@ -646,10 +565,111 @@ def main() -> int:
             note="the default build: ms, plain_ms, bound and error are the "
                  "reduced entry's"))
 
+    # 10. K1's phases alone, both programs: bit for bit at one iteration,
+    # then the timed table with the launch counts from 0.
+    def outputs_bits(o):
+        return torch.cat([torch.view_as_real(v).reshape(v.shape[0], -1)
+                          .view(torch.int32) if v.is_complex()
+                          else v.reshape(v.shape[0], -1).view(torch.int32)
+                          for v in o], dim=1)
+
+    def per_iteration_plain(run):
+        """The plain version's ms per iteration: (min of 3 at 4 iterations
+        - min of 3 at 1) / 3, so that its set-up cancels."""
+        one = min(phases.cuda_ms(lambda: run(1)) for _ in range(3))
+        four = min(phases.cuda_ms(lambda: run(4)) for _ in range(3))
+        return (four - one) / 3
+
+    t_phases = time.perf_counter()
+    for program, hc_p, k_round, rr_p in (("reduced", hc, k_reduced, rr),
+                                         ("schedule", hc_s, k_schedule,
+                                          rr_s)):
+        seg_ms = k_round["ms"]
+        state = phases.make_state(problem, dataclasses.replace(cfg, hc=hc_p))
+        B = state.batch
+        run_here = [p for p in phases.PORT_PHASES
+                    if not (program == "schedule"
+                            and p in ("elimfam", "elimtail"))]
+        plain_ms = {}
+        for p in phases.PORT_PHASES:
+            if p not in run_here:
+                try:
+                    phases.run_phase(state, p, 1)
+                except ValueError as err:
+                    print(f"phase {program} {p}: refused ({err})", flush=True)
+                    continue
+                raise AssertionError(f"{p} ran on the schedule program")
+            if p == "step":
+                k = phases.run_step(state, 1)
+                pl = phases.run_step(state, 1, plain=True)
+
+                def plain_run(n):
+                    return phases.run_step(state, n, plain=True)
+            else:
+                k = phases.run_phase(state, p, 1)
+                pl = phases.plain_phase(state, p, 1)
+
+                def plain_run(n, p=p):
+                    return phases.plain_phase(state, p, n)
+            torch.cuda.synchronize()
+            kb, pb = outputs_bits(k), outputs_bits(pl)
+            same = int((kb == pb).all(dim=1).sum())
+            err = max(float((u.to(torch.complex64) - v.to(torch.complex64))
+                            .abs().max()) for u, v in zip(k, pl))
+            print(f"phase {program} {p}: kernel vs plain at 1 iteration, "
+                  f"bit-identical paths {same}/{B}, max abs err {err:.3e}",
+                  flush=True)
+            assert same == B, (program, p, same)
+            assert bool(torch.isfinite(k[0]).all()), (program, p)
+            plain_ms[p] = (per_iteration_plain(plain_run), err)
+        _kernels.hc_phase.phase_launches = {}
+        _kernels.hc_track.launches = 0
+        rows = phases.measure(state, run_here, PHASE_ITERS, PHASE_STEP_ITERS)
+        launches_p = dict(_kernels.hc_phase.phase_launches,
+                          step=_kernels.hc_track.launches)
+        for r in rows:
+            p = r["phase"]
+            assert launches_p.get(p, 0) > 0, (program, p, launches_p)
+            assert r["blocks_per_sm"] == r["tracker_blocks_per_sm"], r
+            print(f"phase {program} {p:9s}: {r['us']:10.3f} us/iter over "
+                  f"{B} paths, {r['ns_per_path']:8.3f} ns/path-iter, "
+                  f"{r['step_share']:.4f} of a step; bound "
+                  f"{r['bound_ms'] * 1e3:9.3f} us ({100 * r['bound_share']:.3f}"
+                  f" %); plain {plain_ms[p][0]:.3f} ms/iter; blocks/SM "
+                  f"{r['blocks_per_sm']} (tracker {r['tracker_blocks_per_sm']}"
+                  f"); launches {launches_p[p]}", flush=True)
+            kernels.append(dict(
+                name="hc_phase" if p != "step" else "hc_track", phase=p,
+                program=program,
+                replaces=(REPLACES_PHASE if p != "step"
+                          else "tools/microbench_fused.py:442"),
+                jax_phases=[j for j, (q, _) in phases.PHASE_MAP.items()
+                            if q == p],
+                launches=launches_p[p],
+                launches_per_round=(phase_round[program] if p != "step"
+                                    else k_round["launches"]),
+                blocks_per_sm=r["blocks_per_sm"], max_abs_err=plain_ms[p][1],
+                ms=r["ms"], plain_ms=plain_ms[p][0], bound_ms=r["bound_ms"],
+                bound_by="operations", paths=B,
+                ptxas=phase_ptxas.get((_kernels.hc_track_label(
+                    phases.phase_config(hc_p, p)), p), ""),
+                **({"note": "phase 10's step: the tracker kernel itself on "
+                            "fresh state, timed as the JAX tool's run_step"}
+                   if p == "step" else {})))
+        step_ms = next(r["ms"] for r in rows if r["phase"] == "step")
+        longest = int(rr_p.num_steps.max())
+        print(f"phase {program} step: {step_ms:.3f} ms per step on {B} fresh "
+              f"paths; phase 4/5's segmented tracker {seg_ms:.3f} ms over the "
+              f"round's largest step count {longest}: {seg_ms / longest:.3f} "
+              f"ms per step (a sanity line: the round's batch shrinks)",
+              flush=True)
+
+    print(f"phase 10: {time.perf_counter() - t_phases:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
-    print(json.dumps({"kernels": [dict(
-        name="hc_track", route="cuda", source=SOURCE, library_ms=None,
-        **{"replaces": REPLACES.get(k["program"]), **k}) for k in kernels]}))
+    print(json.dumps({"kernels": [{
+        **dict(name="hc_track", route="cuda", source=SOURCE, library_ms=None,
+               replaces=REPLACES.get(k["program"])), **k}
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""The operation count behind chip_smoke.py's bound of the tracker kernel.
+"""The operation counts of ops/bound.py, behind the bounds of the tracker
+kernel and of its phases (chip_smoke.py, ops/phases.py).
 
 An evaluation is counted as the function needs it (``assembly_flops``,
 pinned here): each distinct monomial and each combo once, then the scale
@@ -9,7 +10,7 @@ point entry, distinct monomial and combo as the function needs them, not
 per term as the kernel redoes them; its bf16 conversions are conversions
 and are not counted in the bound.
 
-``chip_smoke.fill_steps`` gives, per pivot step of a solve program, the
+``bound.fill_steps`` gives, per pivot step of a solve program, the
 columns the pivot row may hold (the symbolic pattern with fill), and
 ``solve_flops`` counts the solve over those columns only.  The count is
 right only if the pattern covers every entry the solve really meets: on
@@ -25,9 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
-from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused, ransac
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+    bound,
+    fused,
+    ransac,
+)
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
     config,
     data_io,
@@ -47,7 +51,7 @@ def problem():
 def test_fill_pattern_covers_the_solve(problem, solver):
     c = fused.FusedConstants.build(problem, solver=solver)
     tb = fused._Tables(c, "cpu")
-    steps = chip_smoke.fill_steps(c)
+    steps = bound.fill_steps(c)
     assert sorted(s for s, *_ in steps) == list(range(c.n))
     rng = np.random.default_rng(0)
     mr = torch.zeros((_SYSTEMS, c.n, fused.WIDTH))
@@ -81,9 +85,9 @@ def test_assembly_flops_of_the_committed_problem(problem, solver):
     monomial (107), 12 per cubic one (175), 6 per combo (450 Hx, 461 rhs)
     and 4 per term (926 Hx, 528 rhs); a replay's rhs, its cubic part."""
     c = fused.FusedConstants.build(problem, solver=solver)
-    assert chip_smoke.assembly_flops(c) == \
+    assert bound.assembly_flops(c) == \
         6 * 107 + 12 * 175 + 6 * 911 + 4 * 1454 == 14024
-    assert chip_smoke.assembly_flops(c, rhs_only=True) == \
+    assert bound.assembly_flops(c, rhs_only=True) == \
         12 * 175 + 6 * 461 + 4 * 528 == 6978
 
 
@@ -93,8 +97,8 @@ def test_solve_flops_of_the_committed_problem(problem, solver, flops):
     """The per-solve counts that PERF.md's bounds rest on: the assembly
     once per monomial and combo, then the solve over its pattern."""
     c = fused.FusedConstants.build(problem, solver=solver)
-    assert chip_smoke.solve_flops(c) == flops
-    assert flops - chip_smoke.assembly_flops(c) == \
+    assert bound.solve_flops(c) == flops
+    assert flops - bound.assembly_flops(c) == \
         {"reduced": 7706, "schedule": 7486}[solver]
 
 
@@ -105,10 +109,10 @@ def test_replay_flops_of_the_committed_problem(problem, solver, flops):
     candidate per step on the rhs column, and the solve's
     back-substitution."""
     c = fused.FusedConstants.build(problem, solver=solver)
-    backsub = sum(8 * (len(p) - 1) + 13 for *_, p in chip_smoke.fill_steps(c))
-    updates = sum(8 * (len(r) - 1) for _, _, r, _ in chip_smoke.fill_steps(c))
-    assert chip_smoke.replay_flops(c) == \
-        chip_smoke.assembly_flops(c, rhs_only=True) + updates + backsub == flops
+    backsub = sum(8 * (len(p) - 1) + 13 for *_, p in bound.fill_steps(c))
+    updates = sum(8 * (len(r) - 1) for _, _, r, _ in bound.fill_steps(c))
+    assert bound.replay_flops(c) == \
+        bound.assembly_flops(c, rhs_only=True) + updates + backsub == flops
 
 
 @pytest.mark.parametrize("solver", ["reduced", "schedule"])
@@ -118,9 +122,9 @@ def test_split_flops_of_the_committed_problem(problem, solver):
     (450 Hx, 461 rhs), 4 per term (926 Hx, 528 rhs) and 2 per entry
     (170 + 30) of an RK-stage assembly, or of a replay's rhs alone."""
     c = fused.FusedConstants.build(problem, solver=solver)
-    assert chip_smoke.split_flops(c) == \
+    assert bound.split_flops(c) == \
         120 + 4 * 282 + 2 * 911 + 4 * 1454 + 2 * 200 == 9286
-    assert chip_smoke.split_flops(c, rhs_only=True) == \
+    assert bound.split_flops(c, rhs_only=True) == \
         120 + 4 * 175 + 2 * 461 + 4 * 528 + 2 * 30 == 3914
 
 

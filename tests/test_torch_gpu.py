@@ -18,7 +18,11 @@ segments).  The kernel's solve and replay are also held alone
 blocks per SM are pinned; eval_structure "gathered" and "merged" launch the
 default build.  The grid is persistent (warps take paths from a counter):
 one block equals the full grid, and a second launch starts its queue
-afresh.
+afresh.  K1's phases alone (ops/phases.py, the phase kernels of the same
+source) equal their plain versions bit for bit on 3,070 paths (10 x the
+roots) for both programs, "replay" in the corrector_jacobian_reuse build
+and the evaluation phases in the split2 and abc builds, and each phase
+kernel fits as many blocks per SM as the tracker in its build.
 """
 
 import dataclasses
@@ -32,6 +36,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     _kernels,
     fused,
+    phases,
     ransac,
     segmented,
 )
@@ -381,3 +386,75 @@ def test_cuda_default_build_resources(setup, tmp_path, monkeypatch):
     assert _resources(_kernels.build_logs[job[1]], "hc_track_kernel") == \
         (83, 45568, 0, 0)
     assert _kernels.hc_track_blocks_per_sm(config.HCConfig()) == 5
+
+
+_PHASE_PATHS = 10   # x the roots
+
+
+def _phase_state(setup, **knobs):
+    cfg, port, _, _ = setup
+    cfg = dataclasses.replace(cfg, hc=dataclasses.replace(cfg.hc, **knobs))
+    return phases.make_state(port, cfg, batch=_PHASE_PATHS * port.num_tracks)
+
+
+def _phase_matches_plain(state, phase, niter):
+    """The phase kernel against plain_phase on the same state: out, the
+    pivots and the running sum equal as bits, on every path."""
+    before = sum(_kernels.hc_phase.phase_launches.values())
+    before_phase = _kernels.hc_phase.phase_launches.get(phase, 0)
+    k = phases.run_phase(state, phase, niter)
+    assert sum(_kernels.hc_phase.phase_launches.values()) == before + 1
+    assert _kernels.hc_phase.phase_launches[phase] == before_phase + 1
+    p = phases.plain_phase(state, phase, niter)
+    torch.cuda.synchronize()
+    # Into the outputs of an earlier call (as the timing reuses them).
+    again = phases.run_phase(state, phase, niter,
+                             outputs=tuple(t.clone() for t in k))
+    torch.cuda.synchronize()
+    for u, v, w in zip(k, p, again):
+        if u.is_complex():
+            u, v, w = (torch.view_as_real(a) for a in (u, v, w))
+        assert torch.equal(u.view(torch.int32), v.view(torch.int32))
+        assert torch.equal(u, w)
+    assert bool(torch.isfinite(k[0]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("niter", [1, 3])
+@pytest.mark.parametrize("solver", ["reduced", "schedule"])
+@pytest.mark.parametrize("phase", _kernels.PHASES)
+def test_cuda_phase_matches_plain(setup, phase, solver, niter):
+    """Each phase kernel, bit for bit with its plain version; the
+    family/reduced split of the elimination raises on the schedule
+    program."""
+    state = _phase_state(setup, solver=solver)
+    if phase in ("elimfam", "elimtail") and solver == "schedule":
+        with pytest.raises(ValueError, match="condensed"):
+            phases.run_phase(state, phase, niter)
+        return
+    _phase_matches_plain(state, phase, niter)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("build", ["split2", "abc"])
+@pytest.mark.parametrize("phase", ["fill", "monomials", "walk", "walk_bf16",
+                                   "evrhs", "elim", "back", "evsolve",
+                                   "replay"])
+def test_cuda_phase_variant_builds(setup, build, phase):
+    """The phases in the evaluation variants' builds: the RK-stage
+    evaluation at 2-term splits (split2) and the basis "abc"."""
+    state = _phase_state(setup, **_VARIANTS[build])
+    _phase_matches_plain(state, phase, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", _kernels.PHASES)
+def test_cuda_phase_blocks_per_sm(setup, phase):
+    """A phase kernel fits the tracker's blocks per SM in its build (5 in
+    the default build, 4 in the replaying one "replay" runs in), so the
+    tracker's launch shape is its own."""
+    cfg = setup[0]
+    hc = phases.phase_config(cfg.hc, phase)
+    assert _kernels.hc_phase_blocks_per_sm(phase, hc) == \
+        _kernels.hc_track_blocks_per_sm(hc) == (4 if phase == "replay"
+                                                else 5)

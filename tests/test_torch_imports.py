@@ -19,6 +19,8 @@ _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.eval",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.fused",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops._kernels",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.bound",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.phases",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.ransac",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.reduce",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.schedule",
@@ -67,6 +69,17 @@ def _imported_names(path):
 def test_chip_smoke_names_no_jax_module():
     """chip_smoke.py imports the port inside main, so it is read, not run."""
     names = list(_imported_names(os.path.join(REPO, "chip_smoke.py")))
+    assert any(n.startswith("trifocal_pose_estimation_using_improved_gpuhc_"
+                            "torch") for n in names)
+    for n in names:
+        assert not n.startswith((_JAX_PKG, "jax")), n
+
+
+def test_microbench_torch_names_no_jax_module():
+    """tools/microbench_torch.py imports the port inside main, so it is
+    read, not run."""
+    names = list(_imported_names(os.path.join(REPO, "tools",
+                                              "microbench_torch.py")))
     assert any(n.startswith("trifocal_pose_estimation_using_improved_gpuhc_"
                             "torch") for n in names)
     for n in names:

@@ -113,10 +113,14 @@ def test_kernel_plan_header(constants):
     ("eval_structure", "dense"), ("predictor", "euler"),
     ("backend", "xla"), ("backend", "p2c"),
     ("eval_precision", "bf16"), ("corrector_jacobian_reuse", 3),
-    ("truncate_paths", False)])
+    ("truncate_paths", False), ("num_devices", 2), ("num_devices", 8)])
 def test_non_shipped_config_rejected(cfg, knob, value):
-    bad = dataclasses.replace(cfg, hc=dataclasses.replace(cfg.hc,
-                                                          **{knob: value}))
+    if knob == "num_devices":
+        # The JAX engine shards over num_devices; the port does not.
+        bad = dataclasses.replace(cfg, num_devices=value)
+    else:
+        bad = dataclasses.replace(cfg, hc=dataclasses.replace(
+            cfg.hc, **{knob: value}))
     with pytest.raises(ValueError, match=knob):
         config.check_shipped(bad)
 
@@ -130,8 +134,11 @@ def test_handoff_with_frozen_rk_stages_rejected(cfg):
 
 
 def test_shipped_config_accepted(cfg):
-    """The defaults, the schedule solve and the TrunRANSAC abort round."""
+    """The defaults, one device or all visible ones (one card), the
+    schedule solve and the TrunRANSAC abort round."""
     config.check_shipped(cfg)
+    for devices in (None, 1):
+        config.check_shipped(dataclasses.replace(cfg, num_devices=devices))
     config.check_shipped(dataclasses.replace(
         cfg, hc=dataclasses.replace(cfg.hc, solver="schedule"),
         ransac=dataclasses.replace(cfg.ransac, abort_by_good_sol=True)))

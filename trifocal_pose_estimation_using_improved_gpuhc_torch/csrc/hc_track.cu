@@ -37,6 +37,7 @@
 //    abc branch) in place of the two-point basis.
 // eval_structure "gathered" and "merged" are other matmul forms of the same
 // evaluation on the TPU and run the build of their other knobs.
+// hc_phase_kernel (below) runs the tracker's phases alone, for timing them.
 // A replaying build keeps the elimination where the forward pass leaves
 // it: the pivot rows in the system itself (no later step writes a pivot
 // row) and the pivots in s.piv, plus each candidate's multiplier in a
@@ -49,7 +50,7 @@
 // What bounds it on the card: neither bytes nor operations.  A path reads
 // ~3 KB of state and coefficients once (the plan, ~16 KB, stays in L1/L2),
 // and it needs ~22,000 FP32 operations per evaluate + solve (the bound's
-// count, chip_smoke.solve_flops), ~3.5 ms for a round at the FP32 peak.
+// count, ops/bound.solve_flops), ~3.5 ms for a round at the FP32 peak.
 // What it waits on is latency: a step is ~6 evaluate+solve rounds, and a
 // solve is 30 dependent pivot steps (max reduction, ballot, broadcast, row
 // updates) plus 30 dependent back-substitution dot products, each a
@@ -288,8 +289,9 @@ __device__ __forceinline__ void monomials(WarpSmem& s,
 // Walk a packed term plan (FusedConstants._packed_terms): each lane sums
 // its entries' terms coef * P[q] * monomial in order and writes each entry
 // where its last term says; a cubic monomial marks an rhs term (R, and -Ht
-// unless want_h).
-template <bool S2>
+// unless want_h).  BF (the phase kernel's "walk_bf16" only): P[q] and the
+// monomial each rounded to bf16 before their product, the sum in FP32.
+template <bool S2, bool BF = false>
 __device__ __forceinline__ void walk_terms(WarpSmem& s,
                                            const int* __restrict__ part,
                                            int n_quad, bool want_h,
@@ -308,7 +310,14 @@ __device__ __forceinline__ void walk_terms(WarpSmem& s,
     const bool rhs = mono >= n_quad;
     const int q = ((w >> 9) & 63) + (rhs ? QMAX : 0);
     const float coef = (float)((int)w >> 26);
-    accumulate<S2>(acc, lo, coef, cmul(pr[q], mono_t[mono]));
+    if constexpr (BF) {
+      const float2 p = pr[q], v = mono_t[mono];
+      accumulate<S2>(acc, lo, coef,
+                     cmul(make_float2(round_bf16(p.x), round_bf16(p.y)),
+                          make_float2(round_bf16(v.x), round_bf16(v.y))));
+    } else {
+      accumulate<S2>(acc, lo, coef, cmul(pr[q], mono_t[mono]));
+    }
     if (w & LAST) {
       const float2 sum = total<S2>(acc, lo);
       m[(w >> 16) & 1023] =
@@ -400,6 +409,83 @@ __device__ __forceinline__ void eliminate(float2& mv, float2 f, float2 prow) {
   mv.y -= f.x * prow.y + f.y * prow.x;
 }
 
+// Pivot step st of the plan's program on s.m, from the state (used rows,
+// row-map level, current map) the earlier steps left.  With KEEP (a
+// replaying build) each candidate's multiplier goes to `keep`.
+template <bool KEEP>
+__device__ __forceinline__ void pivot_step(WarpSmem& s, const int* steps,
+                                           const int* maps, float2* keep,
+                                           int st, unsigned& used, int& level,
+                                           int& cur, int lane) {
+  const int* sp = steps + STEP_INTS * st;
+  const int want = sp[0], col = sp[1], nc = sp[2];
+  for (; level < want; ++level) next_level(s, maps, level, used, cur, lane);
+  int r = -1;
+  float2 v = make_float2(0.f, 0.f);
+  bool was = false, nan = false;
+  unsigned key = 0u;  // 0: not a candidate, or a used row
+  if (lane < nc) {
+    r = s.u.sv.map[cur][sp[4 + lane]];
+    v = s.m[at(r, col)];
+    was = (used >> r) & 1u;
+    const float metric = fabsf(v.x) + fabsf(v.y);
+    // |Re|+|Im| >= +0 orders as its bits do: key 1 + bits.
+    if (!was) key = __float_as_uint(metric) + 1u;
+    nan = !was && metric != metric;
+  }
+  // Pivot: the first lane holding the maximum (a NaN wins, as in
+  // torch.argmax); with no unused candidate, the first candidate.
+  const unsigned nan_lanes = __ballot_sync(FULL, nan);
+  const unsigned hit = nan_lanes ? nan_lanes
+                                 : __ballot_sync(FULL, key == __reduce_max_sync(FULL, key));
+  const int pl = __ffs(hit) - 1;
+  const int p = __shfl_sync(FULL, r, pl);
+  const float2 pv = shfl2(v, pl);
+  if (lane == 0) s.piv[st] = p;
+  float den = pv.x * pv.x + pv.y * pv.y;
+  if (den == 0.0f) den = 1.0f;
+  const float ir = pv.x / den, ii = -pv.y / den;
+  const bool live = lane < nc && lane != pl && !was;
+  const float2 f = live ? make_float2(v.x * ir - v.y * ii, v.x * ii + v.y * ir)
+                        : make_float2(0.f, 0.f);
+  if constexpr (KEEP) {
+    if (lane < nc) keep[sp[3] + lane] = f;
+  }
+  used |= 1u << p;
+  const float2 prow = s.m[at(p, lane)];
+  // Each live candidate's multiplier and row, for broadcast reads.
+  if (live) {
+    s.v[lane] = f;
+    s.u.sv.rows[lane] = r;
+  }
+  unsigned todo = __ballot_sync(FULL, live);
+  __syncwarp();
+  // Two candidates at a time, both rows read before either is written
+  // (the rows are distinct).
+  while (todo) {
+    const int i = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const float2 fi = s.v[i];
+    const int ei = at(s.u.sv.rows[i], lane);
+    if (todo) {
+      const int j = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float2 fj = s.v[j];
+      const int ej = at(s.u.sv.rows[j], lane);
+      float2 mi = s.m[ei], mj = s.m[ej];
+      eliminate(mi, fi, prow);
+      eliminate(mj, fj, prow);
+      s.m[ei] = mi;
+      s.m[ej] = mj;
+    } else {
+      float2 mi = s.m[ei];
+      eliminate(mi, fi, prow);
+      s.m[ei] = mi;
+    }
+  }
+  __syncwarp();
+}
+
 // Restricted-pivoting solve of s.m by the plan's pivot program; returns
 // lane v's entry of x.  With KEEP (a replaying build) each candidate's
 // multiplier goes to `keep`.
@@ -413,76 +499,31 @@ __device__ float2 solve(WarpSmem& s, const int* __restrict__ plan,
   __syncwarp();
   unsigned used = 0u;
   int level = 0, cur = 0;
-  for (int st = 0; st < n_step; ++st) {
-    const int* sp = steps + STEP_INTS * st;
-    const int want = sp[0], col = sp[1], nc = sp[2];
-    for (; level < want; ++level) next_level(s, maps, level, used, cur, lane);
-    int r = -1;
-    float2 v = make_float2(0.f, 0.f);
-    bool was = false, nan = false;
-    unsigned key = 0u;  // 0: not a candidate, or a used row
-    if (lane < nc) {
-      r = s.u.sv.map[cur][sp[4 + lane]];
-      v = s.m[at(r, col)];
-      was = (used >> r) & 1u;
-      const float metric = fabsf(v.x) + fabsf(v.y);
-      // |Re|+|Im| >= +0 orders as its bits do: key 1 + bits.
-      if (!was) key = __float_as_uint(metric) + 1u;
-      nan = !was && metric != metric;
-    }
-    // Pivot: the first lane holding the maximum (a NaN wins, as in
-    // torch.argmax); with no unused candidate, the first candidate.
-    const unsigned nan_lanes = __ballot_sync(FULL, nan);
-    const unsigned hit = nan_lanes ? nan_lanes
-                                   : __ballot_sync(FULL, key == __reduce_max_sync(FULL, key));
-    const int pl = __ffs(hit) - 1;
-    const int p = __shfl_sync(FULL, r, pl);
-    const float2 pv = shfl2(v, pl);
-    if (lane == 0) s.piv[st] = p;
-    float den = pv.x * pv.x + pv.y * pv.y;
-    if (den == 0.0f) den = 1.0f;
-    const float ir = pv.x / den, ii = -pv.y / den;
-    const bool live = lane < nc && lane != pl && !was;
-    const float2 f = live ? make_float2(v.x * ir - v.y * ii, v.x * ii + v.y * ir)
-                          : make_float2(0.f, 0.f);
-    if constexpr (KEEP) {
-      if (lane < nc) keep[sp[3] + lane] = f;
-    }
-    used |= 1u << p;
-    const float2 prow = s.m[at(p, lane)];
-    // Each live candidate's multiplier and row, for broadcast reads.
-    if (live) {
-      s.v[lane] = f;
-      s.u.sv.rows[lane] = r;
-    }
-    unsigned todo = __ballot_sync(FULL, live);
-    __syncwarp();
-    // Two candidates at a time, both rows read before either is written
-    // (the rows are distinct).
-    while (todo) {
-      const int i = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const float2 fi = s.v[i];
-      const int ei = at(s.u.sv.rows[i], lane);
-      if (todo) {
-        const int j = __ffs(todo) - 1;
-        todo &= todo - 1;
-        const float2 fj = s.v[j];
-        const int ej = at(s.u.sv.rows[j], lane);
-        float2 mi = s.m[ei], mj = s.m[ej];
-        eliminate(mi, fi, prow);
-        eliminate(mj, fj, prow);
-        s.m[ei] = mi;
-        s.m[ej] = mj;
-      } else {
-        float2 mi = s.m[ei];
-        eliminate(mi, fi, prow);
-        s.m[ei] = mi;
-      }
-    }
-    __syncwarp();
-  }
+  for (int st = 0; st < n_step; ++st)
+    pivot_step<KEEP>(s, steps, maps, keep, st, used, level, cur, lane);
   return backsub(s, plan, lane);
+}
+
+// The solve's starting row map (level 0), for a phase that runs its pivot
+// steps in parts.
+__device__ __forceinline__ void begin_solve(WarpSmem& s,
+                                            const int* __restrict__ plan,
+                                            int lane) {
+  if (lane < NV) s.u.sv.map[0][lane] = plan[plan[H_MAP0] + lane];
+  __syncwarp();
+}
+
+// Pivot steps [st0, st1) of the plan's program, as solve() runs them.
+template <bool KEEP>
+__device__ __forceinline__ void forward(WarpSmem& s,
+                                        const int* __restrict__ plan,
+                                        float2* keep, int st0, int st1,
+                                        unsigned& used, int& level, int& cur,
+                                        int lane) {
+  const int* steps = plan + plan[H_STEPS];
+  const int* maps = plan + plan[H_MAPS];
+  for (int st = st0; st < st1; ++st)
+    pivot_step<KEEP>(s, steps, maps, keep, st, used, level, cur, lane);
 }
 
 // The last solve()'s elimination replayed on the rhs column assemble_rhs()
@@ -716,6 +757,250 @@ solve_replay_kernel(const float2* __restrict__ m, const float2* __restrict__ rhs
   if (lane < NV) x_replay[(size_t)i * NV + lane] = xr;
 }
 
+// K1's phases alone, one kernel per phase (a template: the phase is a
+// compile-time choice, so no phase pays for another's registers).  Replaces
+// the JAX round's per-phase microbenchmark kernel
+// (tools/microbench_fused.py::build_phase_kernel), which runs a piece of the
+// TPU kernel's step `niter` times on realistic state; the plain twins are
+// in ops/phases.py.  Every phase runs K1's own device functions on K1's
+// WarpSmem, one warp per path, on the persistent grid of hc_track_kernel,
+// and in the same build as the tracker it times (the build's -D flags: the
+// RK-stage evaluation of SPLIT2, the basis of ABC).  Iteration i runs at
+// t = 0.31 + i 1e-7; a phase that takes no t adds d = i 1e-7 to one entry
+// of its input instead (0 at i = 0), so nothing is loop-invariant.  Work
+// done once per path before the loop (the fixed state a phase starts
+// from) costs the same at every `niter` and cancels in the two-count
+// timing.  Each iteration adds one value per lane of its result to a
+// running sum; at the end each path writes its last result (PHASE_OUT
+// entries per path, the layout in ops/_kernels.hc_phase), the pivots of
+// an elimination and the sum.
+enum Phase {
+  PH_FILL = 0,   // P and dP/dt at t (fill)
+  PH_MONO,       // the monomial table at x, entry 0 moved by d
+  PH_WALK,       // the term walk over a fixed table, monomial 0 moved by d
+  PH_WALK_BF16,  // the same with P and the monomial rounded to bf16
+  PH_EVAL,       // fill + monomials + walk (no zeroing of the system)
+  PH_EVRHS,      // fill + the rhs alone (assemble_rhs)
+  PH_EVASM,      // fill + assemble
+  PH_ELIM,       // fill + assemble + every forward pivot step
+  PH_ELIMFAM,    // the family steps on a fixed system, rhs of row 0 moved
+  PH_ELIMTAIL,   // the reduced steps, from the family steps' state
+  PH_BACK,       // back-substitution on a fixed eliminated system
+  PH_EVSOLVE,    // fill + assemble + solve
+  PH_REPLAY,     // corrector fill + rhs + replay of a kept elimination
+  N_PHASES
+};
+constexpr int PHASE_OUT = 1024;  // float2 per path of a phase's result
+
+__device__ __forceinline__ void add2(float2& acc, float2 v) {
+  acc.x += v.x;
+  acc.y += v.y;
+}
+
+template <int PH>
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+hc_phase_kernel(const float2* __restrict__ x, const float2* __restrict__ efg,
+                const int* __restrict__ plan, int n_paths, int niter,
+                float2* __restrict__ out, int* __restrict__ piv_out,
+                float2* __restrict__ acc_out, int* __restrict__ next_path) {
+  constexpr bool SYSTEM = PH == PH_WALK || PH == PH_WALK_BF16 ||
+                          PH == PH_EVAL || PH == PH_EVASM || PH == PH_ELIM ||
+                          PH == PH_ELIMFAM || PH == PH_ELIMTAIL;
+  constexpr bool X_OUT = PH == PH_BACK || PH == PH_EVSOLVE || PH == PH_REPLAY;
+  constexpr float T0 = 0.31f, DT = 1e-7f;
+  __shared__ WarpSmem smem[WARPS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  WarpSmem& s = smem[warp];
+  float2* keep = nullptr;
+  if constexpr (PH == PH_REPLAY) keep = keep_area(warp);
+  const int q_n = plan[H_Q], n_step = plan[H_NSTEP];
+  const int* steps = plan + plan[H_STEPS];
+  // The family stages' steps come first (row-map levels below the last).
+  int n_fam = 0;
+  while (n_fam < n_step && steps[STEP_INTS * n_fam] < plan[H_NMAP]) ++n_fam;
+  // The pivot steps an elimination phase runs.
+  const int p0 = PH == PH_ELIMTAIL ? n_fam : 0;
+  const int p1 = PH == PH_ELIMFAM ? n_fam : n_step;
+  const float2 zero = make_float2(0.f, 0.f);
+
+  for (;;) {
+    int path = 0;
+    if (lane == 0) path = atomicAdd(next_path, 1);
+    path = __shfl_sync(FULL, path, 0);
+    if (path >= n_paths) break;
+
+    float2 e[2], f[2], g[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int q = lane + 32 * j;
+      const float2* base = efg + (size_t)path * 3 * q_n;
+      e[j] = q < q_n ? base[q] : zero;
+      f[j] = q < q_n ? base[q_n + q] : zero;
+      g[j] = q < q_n ? base[2 * q_n + q] : zero;
+    }
+    const float2 xv = lane < NV ? x[(size_t)path * NV + lane] : zero;
+    float2 acc = zero, xs = zero, mono0 = zero;
+    unsigned used0 = 0u;
+    int level0 = 0, cur0 = 0;
+
+    // The fixed state a phase starts from, once per path.
+    if constexpr (PH == PH_WALK || PH == PH_WALK_BF16 || PH == PH_ELIMFAM ||
+                  PH == PH_ELIMTAIL || PH == PH_BACK) {
+      fill(s, e, f, g, T0, true, q_n, lane);
+      set_point<SPLIT2>(s, xv, lane);
+      assemble<SPLIT2>(s, plan, false, lane);
+      mono0 = s.u.mono[0];
+    }
+    if constexpr (PH == PH_EVAL) {
+      for (int i = lane; i < NV * W; i += 32) s.m[i] = zero;
+    }
+    if constexpr (PH == PH_ELIMTAIL || PH == PH_BACK) {
+      begin_solve(s, plan, lane);
+      forward<false>(s, plan, nullptr, 0, PH == PH_BACK ? n_step : n_fam,
+                     used0, level0, cur0, lane);
+    }
+    if constexpr (PH == PH_REPLAY) {
+      fill(s, e, f, g, T0, false, q_n, lane);
+      set_point(s, xv, lane);
+      assemble(s, plan, true, lane);
+      solve<true>(s, plan, keep, lane);
+    }
+
+    for (int it = 0; it < niter; ++it) {
+      const float d = (float)it * DT, t = T0 + d;
+      __syncwarp();
+      if constexpr (PH == PH_FILL) {
+        fill(s, e, f, g, t, true, q_n, lane);
+        if (lane < q_n)
+          add2(acc, make_float2(s.pr[lane].x + s.pr[QMAX + lane].x,
+                                s.pr[lane].y + s.pr[QMAX + lane].y));
+      } else if constexpr (PH == PH_MONO) {
+        set_point<SPLIT2>(s, lane == 0 ? make_float2(xv.x + d, xv.y) : xv,
+                          lane);
+        monomials<SPLIT2>(s, plan, 0, lane);
+        add2(acc, s.u.mono[lane]);
+      } else if constexpr (PH == PH_WALK || PH == PH_WALK_BF16) {
+        if (lane == 0) s.u.mono[0] = make_float2(mono0.x + d, mono0.y);
+        __syncwarp();
+        walk_terms<SPLIT2, PH == PH_WALK_BF16>(s, plan + plan[H_EVAL],
+                                               plan[H_NQUAD], false, lane);
+      } else if constexpr (PH == PH_ELIMFAM || PH == PH_ELIMTAIL) {
+        if (lane == 0) s.m[at(0, RHS)].x += d;
+        __syncwarp();
+        unsigned used = used0;
+        int level = level0, cur = cur0;
+        if constexpr (PH == PH_ELIMFAM) begin_solve(s, plan, lane);
+        forward<false>(s, plan, nullptr, p0, p1, used, level, cur, lane);
+      } else if constexpr (PH == PH_BACK) {
+        if (lane == 0) s.m[at(s.piv[0], RHS)].x += d;
+        __syncwarp();
+        xs = backsub(s, plan, lane);
+      } else if constexpr (PH == PH_REPLAY) {
+        fill(s, e, f, g, t, false, q_n, lane);
+        set_point(s, xv, lane);
+        assemble_rhs(s, plan, true, lane);
+        xs = replay(s, plan, keep, lane);
+      } else {  // EVAL, EVRHS, EVASM, ELIM, EVSOLVE
+        fill(s, e, f, g, t, true, q_n, lane);
+        set_point<SPLIT2>(s, xv, lane);
+        if constexpr (PH == PH_EVAL) {
+          monomials<SPLIT2>(s, plan, 0, lane);
+          walk_terms<SPLIT2>(s, plan + plan[H_EVAL], plan[H_NQUAD], false,
+                             lane);
+        } else if constexpr (PH == PH_EVRHS) {
+          assemble_rhs<SPLIT2>(s, plan, false, lane);
+        } else {
+          assemble<SPLIT2>(s, plan, false, lane);
+        }
+        if constexpr (PH == PH_ELIM) {
+          unsigned used = 0u;
+          int level = 0, cur = 0;
+          begin_solve(s, plan, lane);
+          forward<false>(s, plan, nullptr, 0, n_step, used, level, cur,
+                         lane);
+        }
+        if constexpr (PH == PH_EVSOLVE) xs = solve<false>(s, plan, nullptr,
+                                                          lane);
+      }
+      if constexpr (SYSTEM) add2(acc, s.m[at(lane % NV, lane)]);
+      if constexpr (PH == PH_EVRHS) add2(acc, s.m[at(lane % NV, RHS)]);
+      if constexpr (X_OUT) add2(acc, xs);
+    }
+
+    // The last result, the pivots and the running sum.
+    float2* o = out + (size_t)path * PHASE_OUT;
+    const float2 sum = make_float2(warp_sum(acc.x), warp_sum(acc.y));
+    if (lane == 0) acc_out[path] = sum;
+    if constexpr (PH == PH_FILL) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int q = lane + 32 * j;
+        if (q < q_n) {
+          o[q] = s.pr[q];
+          o[QMAX + q] = s.pr[QMAX + q];
+        }
+      }
+    } else if constexpr (PH == PH_MONO) {
+      for (int i = lane; i < plan[H_NMONO]; i += 32) o[i] = s.u.mono[i];
+    } else if constexpr (PH == PH_EVRHS) {
+      if (lane < NV) o[lane] = s.m[at(lane, RHS)];
+    } else if constexpr (X_OUT) {
+      if (lane < NV) o[lane] = xs;
+    } else {
+      for (int r = 0; r < NV; ++r) o[r * W + lane] = s.m[at(r, lane)];
+      if constexpr (PH == PH_ELIM || PH == PH_ELIMFAM || PH == PH_ELIMTAIL) {
+        if (lane >= p0 && lane < p1) piv_out[(size_t)path * 32 + lane] =
+            s.piv[lane];
+      }
+    }
+    __syncwarp();  // the next path's first writes to s come after
+  }
+}
+
+// A phase kernel's dynamic shared memory (the replay's multipliers) and
+// the largest shared-memory carveout, as configure_track.
+template <int PH>
+cudaError_t configure_phase(int* smem) {
+  *smem = PH == PH_REPLAY ? WARPS * FSLOTS * (int)sizeof(float2) : 0;
+  if (*smem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        hc_phase_kernel<PH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        *smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaFuncSetAttribute(hc_phase_kernel<PH>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int PH>
+cudaError_t phase_blocks(int* blocks) {
+  int smem = 0;
+  const cudaError_t err = configure_phase<PH>(&smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, hc_phase_kernel<PH>, 32 * WARPS, smem);
+}
+
+template <int PH>
+cudaError_t phase_launch(const void* x, const void* efg, const void* plan,
+                         int n_paths, int niter, void* out, void* piv,
+                         void* acc, int blocks, void* next_path,
+                         cudaStream_t stream) {
+  int smem = 0;
+  const cudaError_t err = configure_phase<PH>(&smem);
+  if (err != cudaSuccess) return err;
+  hc_phase_kernel<PH><<<blocks, 32 * WARPS, smem, stream>>>(
+      (const float2*)x, (const float2*)efg, (const int*)plan, n_paths, niter,
+      (float2*)out, (int*)piv, (float2*)acc, (int*)next_path);
+  return cudaGetLastError();
+}
+
+#define HC_PHASES(X)                                                      \
+  X(PH_FILL) X(PH_MONO) X(PH_WALK) X(PH_WALK_BF16) X(PH_EVAL) X(PH_EVRHS)  \
+  X(PH_EVASM) X(PH_ELIM) X(PH_ELIMFAM) X(PH_ELIMTAIL) X(PH_BACK)           \
+  X(PH_EVSOLVE) X(PH_REPLAY)
+
 // The tracker's dynamic shared memory (a replaying build's multipliers),
 // allowed above the default limit, and the largest shared-memory carveout.
 cudaError_t configure_track(int* smem) {
@@ -787,4 +1072,43 @@ extern "C" int hc_solve_replay_launch(const void* m, const void* rhs,
       (const float2*)m, (const float2*)rhs, (float2*)x_solve,
       (float2*)x_replay, (const int*)plan, n_sys);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of phase kernel `phase` (the Phase order) on the
+// current device; returns a CUDA error code, or -2 for no such phase.
+extern "C" int hc_phase_blocks_per_sm(int phase, int* blocks) {
+  switch (phase) {
+#define X(P) \
+  case P:    \
+    return (int)phase_blocks<P>(blocks);
+    HC_PHASES(X)
+#undef X
+  }
+  return -2;
+}
+
+// Launch phase kernel `phase` for `niter` iterations on `blocks`
+// persistent blocks on `stream`, taking paths from the int32 counter
+// *next_path (zero at launch): x (n_paths, 30), efg (n_paths, 3, Q), out
+// (n_paths, PHASE_OUT) float2, piv (n_paths, 32) int32, acc (n_paths)
+// float2.  Returns cudaGetLastError() (0 = launched), -1 if split2/abc are
+// not this library's build, -2 for no such phase.
+extern "C" int hc_phase_launch(int phase, const void* x, const void* efg,
+                               const void* plan, int n_paths, int niter,
+                               void* out, void* piv, void* acc, int split2,
+                               int abc, int blocks, void* next_path,
+                               void* stream) {
+  if ((split2 != 0) != SPLIT2 || (abc != 0) != ABC) return -1;
+  if (n_paths <= 0) return 0;
+  if (blocks <= 0 || niter <= 0) return (int)cudaErrorInvalidValue;
+  switch (phase) {
+#define X(P)                                                            \
+  case P:                                                               \
+    return (int)phase_launch<P>(x, efg, plan, n_paths, niter, out, piv, \
+                                acc, blocks, next_path,                 \
+                                (cudaStream_t)stream);
+    HC_PHASES(X)
+#undef X
+  }
+  return -2;
 }

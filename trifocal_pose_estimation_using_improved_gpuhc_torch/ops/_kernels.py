@@ -17,6 +17,10 @@ stages' 2-term split of eval_precision "split3_rk2" and the pair basis
 "abc") are compile-time
 choices: one library per variant, built when a configuration first needs
 it.  eval_structure picks no build: its values are one function here.
+
+``hc_phase`` launches one of the same source's phase kernels (K1's pieces
+alone, ``ops/phases.py``) in the build of a configuration and counts its
+launches per phase in ``hc_phase.phase_launches``.
 """
 
 from __future__ import annotations
@@ -195,6 +199,20 @@ def hc_track_blocks_per_sm(cfg: HCConfig, device=None) -> int:
     return _occupancy_of(_hc_track_lib(cfg), dev)[0]
 
 
+def _grid(lib: ctypes.CDLL, device: torch.device, n_paths: int,
+          blocks: Optional[int]) -> int:
+    """The persistent grid of a launch over n_paths: ``blocks``, by
+    default the SMs times the tracker's resident blocks per SM in this
+    build; never more than the paths need."""
+    per_sm, warps = _occupancy_of(lib, device)
+    if blocks is None:
+        blocks = torch.cuda.get_device_properties(
+            device).multi_processor_count * per_sm
+    if blocks <= 0:
+        raise ValueError(f"blocks must be positive, got {blocks}")
+    return min(int(blocks), -(-n_paths // warps))
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -240,13 +258,7 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     if rkj and int(plan[3]) != 0:
         raise ValueError("rk_jacobian_reuse runs the schedule program only")
     lib = _hc_track_lib(cfg)
-    per_sm, warps = _occupancy_of(lib, x.device)
-    if blocks is None:
-        blocks = torch.cuda.get_device_properties(
-            x.device).multi_processor_count * per_sm
-    if blocks <= 0:
-        raise ValueError(f"blocks must be positive, got {blocks}")
-    blocks = min(int(blocks), -(-B // warps))
+    blocks = _grid(lib, x.device, B, blocks)
     next_path = torch.zeros(1, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -300,3 +312,108 @@ def hc_solve_replay(m: torch.Tensor, rhs: torch.Tensor, plan: torch.Tensor
 
 
 hc_solve_replay.launches = 0
+
+
+# The phase kernels of csrc/hc_track.cu, in its Phase order.
+PHASES = ("fill", "monomials", "walk", "walk_bf16", "eval", "evrhs", "evasm",
+          "elim", "elimfam", "elimtail", "back", "evsolve", "replay")
+PHASE_OUT = 1024  # complex entries per path of a phase's result
+
+
+def _hc_phase_lib(cfg: HCConfig) -> ctypes.CDLL:
+    lib = _hc_track_lib(cfg)
+    fn = lib.hc_phase_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [i, p, p, p, i, i, p, p, p, i, i, i, p, p]
+        fn.restype = ctypes.c_int
+        occ = lib.hc_phase_blocks_per_sm
+        occ.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+    return lib
+
+
+def hc_phase_blocks_per_sm(phase: str, cfg: HCConfig, device=None) -> int:
+    """Resident blocks per SM of phase kernel ``phase`` in the build
+    ``cfg`` runs, on ``device`` (default the current CUDA device)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _hc_phase_lib(cfg).hc_phase_blocks_per_sm(
+            PHASES.index(phase), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"hc_phase occupancy query failed: CUDA error "
+                           f"{err}")
+    return blocks.value
+
+
+def hc_phase(phase: str, x: torch.Tensor, efg: torch.Tensor,
+             plan: torch.Tensor, niter: int, cfg: HCConfig,
+             outputs: Optional[Tuple] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run phase kernel ``phase`` (``PHASES``) ``niter`` >= 1 times per
+    path on CUDA tensors, in the build of ``cfg``; returns (out, piv, acc).
+
+    x (B, 30) complex64 in position order, efg (B, 3, Q) complex64, plan =
+    FusedConstants.kernel_plan() as int32 on the same card.  out (B,
+    PHASE_OUT) complex64 is the last iteration's result: "fill" P at
+    [0, Q) and dP/dt at [64, 64 + Q); "monomials" the table; "evrhs" the
+    rhs column and "back", "evsolve", "replay" x, at [0, 30); the others
+    the (30, 32) system row-major at [0, 960).  piv (B, 32) int32 holds the
+    pivot row of each step an elimination phase ran (-1 elsewhere), acc
+    (B,) complex64 each path's running sum.  "elimfam"/"elimtail" need the
+    condensed program.  The grid is persistent, the SMs times the
+    tracker's resident blocks per SM in the same build
+    (``hc_track_blocks_per_sm``), so a phase runs at the tracker's launch
+    shape.  ``outputs``, the (out, piv, acc) of an earlier call of the
+    same phase on the same batch, are written again in place of new ones,
+    so that a timed launch allocates nothing.  Raises on anything else or
+    if the launch fails."""
+    if phase not in PHASES:
+        raise ValueError(f"unknown phase {phase!r} (one of {PHASES})")
+    if niter < 1:
+        raise ValueError(f"niter must be >= 1, got {niter}")
+    B = x.shape[0]
+    q = efg.shape[-1]
+    if efg.dim() != 3 or not 0 < q <= 64:
+        raise ValueError(f"efg must be (B, 3, Q) with Q <= 64, got "
+                         f"{tuple(efg.shape)}")
+    _check(x, "x", torch.complex64, (B, 30))
+    _check(efg, "efg", torch.complex64, (B, 3, q))
+    _check(plan, "plan", torch.int32, (plan.numel(),))
+    if len({t.device for t in (x, efg, plan)}) != 1:
+        raise ValueError("tensors on several devices")
+    # Header word 3 counts the row-map levels: the schedule program has none.
+    if phase in ("elimfam", "elimtail") and int(plan[3]) == 0:
+        raise ValueError(f"{phase} runs the condensed program ('reduced') "
+                         f"only")
+    _, _, _, _, split2, abc = hc_track_variant(cfg)
+    lib = _hc_phase_lib(cfg)
+    blocks = _grid(lib, x.device, B, None)
+    if outputs is None:
+        outputs = (torch.zeros((B, PHASE_OUT), dtype=torch.complex64,
+                               device=x.device),
+                   torch.full((B, 32), -1, dtype=torch.int32, device=x.device),
+                   torch.zeros(B, dtype=torch.complex64, device=x.device))
+    out, piv, acc = outputs
+    _check(out, "out", torch.complex64, (B, PHASE_OUT))
+    _check(piv, "piv", torch.int32, (B, 32))
+    _check(acc, "acc", torch.complex64, (B,))
+    next_path = torch.zeros(1, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.hc_phase_launch(
+            PHASES.index(phase), x.data_ptr(), efg.data_ptr(),
+            plan.data_ptr(), B, int(niter), out.data_ptr(), piv.data_ptr(),
+            acc.data_ptr(), split2, abc, blocks, next_path.data_ptr(), stream)
+    if err == -1:
+        raise RuntimeError(f"{hc_track_label(cfg)} is not the variant its "
+                           f"library was built as")
+    if err != 0:
+        raise RuntimeError(f"hc_phase launch failed: CUDA error {err}")
+    hc_phase.phase_launches[phase] = hc_phase.phase_launches.get(phase, 0) + 1
+    return out, piv, acc
+
+
+hc_phase.phase_launches = {}

@@ -678,21 +678,32 @@ def factor_plain(tb: _Tables, m) -> Factor:
     """Restricted-pivoting forward elimination of the augmented systems
     m = (re, im), each (A, 30, 32), in place, by the constants' pivot
     program; returns what back-substitution and a replay need."""
+    return factor_part(tb, m, tb.stages)[0]
+
+
+def factor_part(tb: _Tables, m, stages, state=None):
+    """The pivot steps of ``stages`` (a run of ``tb.stages``) on m in
+    place, from ``state`` = (used rows, row map, level) as an earlier
+    call left it (default: the start of the program); returns (the
+    ``Factor`` of those steps, pivot -1 at every other step, the state
+    after them)."""
     mr, mi = m
     A, n = mr.shape[0], tb.c.n
     dev = mr.device
     ar = torch.arange(A, device=dev)
     a3 = ar[:, None, None]
-    used = torch.zeros((A, n), dtype=torch.bool, device=dev)
-    rmap = tb.map0.expand(A, n)
-    level = 0
+    if state is None:
+        used = torch.zeros((A, n), dtype=torch.bool, device=dev)
+        rmap, level = tb.map0.expand(A, n), 0
+    else:
+        used, rmap, level = state[0].clone(), state[1], state[2]
     S = tb.c.num_steps
-    piv = torch.empty((A, S), dtype=torch.long, device=dev)
+    piv = torch.full((A, S), -1, dtype=torch.long, device=dev)
     rows_all = torch.zeros((A, S, CMAX), dtype=torch.long, device=dev)
     live_all = torch.zeros((A, S, CMAX), dtype=torch.bool, device=dev)
     fr_all = mr.new_zeros((A, S, CMAX))
     fi_all = mr.new_zeros((A, S, CMAX))
-    for lv, steps, cols, cands in tb.stages:
+    for lv, steps, cols, cands in stages:
         while level < lv:
             rmap = _next_map(rmap, used, tb.maps[level])
             level += 1
@@ -721,7 +732,8 @@ def factor_plain(tb: _Tables, m) -> Factor:
         mr[a3, rows] = torch.where(live, old_r - (fr * prr - fi * pri), old_r)
         mi[a3, rows] = torch.where(live, old_i - (fr * pri + fi * prr), old_i)
         used[ar[:, None], p] = True
-    return Factor(mr, mi, piv, rows_all, live_all, fr_all, fi_all)
+    return (Factor(mr, mi, piv, rows_all, live_all, fr_all, fi_all),
+            (used, rmap, level))
 
 
 def backsub_plain(tb: _Tables, mr, mi, piv):

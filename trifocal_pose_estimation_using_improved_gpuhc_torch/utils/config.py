@@ -182,10 +182,17 @@ def check_hc(hc: HCConfig) -> None:
 
 def check_shipped(cfg: EngineConfig) -> None:
     """Raise ValueError unless the engine runs this configuration as the
-    JAX package does: ``check_hc``, and the engine's own knobs."""
+    JAX package does: ``check_hc``, and the engine's own knobs
+    (``num_devices`` None or 1: sharding is not ported)."""
     check_hc(cfg.hc)
     _check_values("hc", cfg.hc, _ENGINE_HC)
     _check_values("ransac", cfg.ransac, _SHIPPED_RANSAC)
+    if cfg.num_devices not in (None, 1):
+        # The JAX engine shards the hypotheses over num_devices and rounds
+        # the abort chunk up to whole shards; the port runs on one card.
+        raise ValueError(f"num_devices={cfg.num_devices!r} is not supported "
+                         f"by the torch port (only None or 1): hypothesis "
+                         f"sharding is not ported")
 
 
 def resolve_data_root(cfg: EngineConfig, verbose: bool = True) -> EngineConfig:
