@@ -50,7 +50,20 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      PHASE_STEP_ITERS): per iteration over the batch, per path-iteration,
      the share of a step, the bound and the share of it reached, blocks per
      SM; the plain versions per iteration; and the step beside phase 4's
-     segmented ms over the round's largest step count (a sanity line).
+     segmented ms over the round's largest step count (a sanity line);
+ 11. the serving surface, each path's hc_track launches counted from 0:
+     (a) a collect_solutions round (view 0, seed 0, H=100), whose per-path
+     flags and steps equal phase 4's round, whose candidates, fundamental
+     matrices and residual minima are checked, with the unique-solution
+     counts in both dedup modes; (b) run_stream over STREAM_VIEWS after
+     warmup(), each view's counts and best supports equal to run_round's
+     on that view, views/s and per-view latency beside sequential rounds
+     over the same views; (c) the stream-abort pipeline
+     (stream_abort_chunk=STREAM_CHUNK) over the same views, each view's
+     found_pose and best supports equal to an abort round's at
+     abort_chunk=STREAM_CHUNK; (d) the command line in subprocesses (H=100
+     rounds with --times 2 and a --stream --abort run over 3 views), with
+     --output-dir under build/cli_out.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
@@ -61,7 +74,8 @@ one hc_phase entry per phase and program of phase 10, ms and plain_ms per
 iteration over the 30,700 paths, launches in the timed table and
 launches_per_round counted in that program's round of phase 4/5; the step's
 entry is named hc_track, phase "step", its launches_per_round the round's
-hc_track launches),
+hc_track launches; the reduced entry also carries phase 11's launches:
+per collecting round, per stream view and per stream-abort chunk),
 and as the last line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
@@ -83,6 +97,10 @@ REL_TOL = 1e-3                      # x on paths both versions converge
 # Phase 10's iterations: fewer than tools/microbench_torch.py's 500 (64
 # for the step), to keep the script short.
 PHASE_ITERS, PHASE_STEP_ITERS = 100, 32
+# Phase 11: the generated data root's 3 views, four times over.
+STREAM_VIEWS = [0, 1, 2] * 4
+STREAM_CHUNK = 10
+CLI = "trifocal_pose_estimation_using_improved_gpuhc_torch.cli"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "trifocal_pose_estimation_using_improved_gpuhc_torch/csrc/hc_track.cu"
 REPLACES = {
@@ -167,6 +185,144 @@ def ptxas_lines(log):
         elif fn and ("registers" in line or "spill" in line):
             out[fn].append(line.split(":", 1)[-1].strip())
     return out
+
+
+def serving(cfg, engine, view, rr, round_line, eng, _kernels) -> dict:
+    """Phase 11 (see the module docstring); returns the launch counts for
+    the reduced entry of the kernels line."""
+    import shutil
+
+    import numpy as np
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        evaluation as evl,
+    )
+
+    def counted(fn):
+        _kernels.hc_track.launches = 0
+        out = fn()
+        return out, _kernels.hc_track.launches
+
+    # (a) A collecting round against phase 4's round on the same inputs.
+    rc, launches_c = counted(lambda: engine.run_round(
+        view, SEED, H_ROUND, collect_solutions=True))
+    round_line(f"collecting round H={H_ROUND}", rc, launches_c)
+    assert launches_c > 0, "the collecting round did not launch the kernel"
+    for f in ("converged", "inf_fail", "pruned", "num_steps"):
+        assert (getattr(rc, f) == getattr(rr, f)).all(), f
+    sols, rcfg = rc.solutions, cfg.ransac
+    cand = (sols.converged
+            & (np.abs(sols.x[:, 24:30].imag) < rcfg.imag_part_tol).all(axis=1)
+            & (sols.x[:, 0:8].real >= 0).all(axis=1))
+    n_cand = int(cand.sum())
+    assert rc.num_candidates == n_cand == rr.num_candidates, (
+        rc.num_candidates, n_cand, rr.num_candidates)
+    for f in (rc.cand_f21, rc.cand_f31):
+        assert f.shape == (n_cand, 3, 3) and np.isfinite(f).all(), f.shape
+    mr, pe = rc.min_residuals, rc.pose_errors
+    for a, b in zip(dataclasses.astuple(mr), dataclasses.astuple(pe)):
+        assert a <= b, (mr, pe)
+    tol = rcfg.duplicate_sol_tol
+    batch = evl.find_unique_solutions(sols.x, sols.converged, tol=tol)
+    ref = evl.find_unique_solutions_reference(
+        sols.x, sols.converged, engine.problem.num_tracks, tol=tol)
+    print(f"collecting round: {n_cand} candidates, F matrices "
+          f"{rc.cand_f21.shape} finite; min residuals rot ({mr.rot21:.3e}, "
+          f"{mr.rot31:.3e}) transl ({mr.transl21:.3e}, {mr.transl31:.3e}), "
+          f"any within GT {rc.any_within_gt}; unique converged solutions: "
+          f"batch {batch.size}, reference {ref.size} of "
+          f"{int(sols.converged.sum())}; actual-solution steps "
+          f"{rc.actual_sol_steps.tolist()}", flush=True)
+
+    def stream_phase(label, e, seq_round):
+        """Sequential rounds over STREAM_VIEWS (the per-view reference and
+        the rate to beat), then the stream with its launches counted."""
+        t0 = time.perf_counter()
+        seq = [seq_round(e.load_view(vi)) for vi in STREAM_VIEWS]
+        seq_s = time.perf_counter() - t0
+        (results, vps), launches = counted(
+            lambda: e.run_stream(STREAM_VIEWS, H_ROUND, SEED))
+        assert launches > 0, f"the {label} did not launch the kernel"
+        lat = [r.track_ms for r in results]
+        print(f"{label} over {len(STREAM_VIEWS)} views: {vps:.3f} views/s, "
+              f"per-view latency mean {sum(lat) / len(lat):.3f} ms, max "
+              f"{max(lat):.3f} ms; launches {launches}; sequential "
+              f"run_round over the same views {len(seq) / seq_s:.3f} views/s "
+              f"(1000 / mean total_ms "
+              f"{1000 / (sum(r.total_ms for r in seq) / len(seq)):.3f})",
+              flush=True)
+        return seq, results, launches
+
+    # (b) The stream, against run_round per view.
+    engine.warmup(H_ROUND)
+    seq, results, launches_s = stream_phase(
+        "run_stream", engine, lambda v: engine.run_round(v, SEED, H_ROUND))
+    for vi, r, q in zip(STREAM_VIEWS, results, seq):
+        got = (*dataclasses.astuple(r.stats)[:3], r.num_candidates,
+               r.best_support21, r.best_support31)
+        want = (*dataclasses.astuple(q.stats)[:3], q.num_candidates,
+                q.best_support21, q.best_support31)
+        assert got == want, (vi, got, want)
+        assert r.found_pose == q.found_pose, vi
+    print(f"run_stream: every view's counts and best supports equal "
+          f"run_round's; found {sum(r.found_pose for r in results)}/"
+          f"{len(results)}", flush=True)
+
+    # (c) The stream-abort pipeline, against the abort round per view.
+    cfg_sa = dataclasses.replace(cfg, ransac=dataclasses.replace(
+        cfg.ransac, abort_by_good_sol=True, abort_chunk=STREAM_CHUNK,
+        stream_abort_chunk=STREAM_CHUNK))
+    engine_sa = eng.TrifocalPoseEngine(cfg_sa)
+    engine_sa.warmup(H_ROUND)
+    seq_a, results_a, launches_a = stream_phase(
+        f"stream-abort (chunk {STREAM_CHUNK})", engine_sa,
+        lambda v: engine_sa.run_round(v, SEED, H_ROUND))
+    for vi, r, q in zip(STREAM_VIEWS, results_a, seq_a):
+        got = (r.found_pose, r.best_support21, r.best_support31)
+        want = (q.found_pose, q.best_support21, q.best_support31)
+        assert got == want, (vi, got, want)
+    chunks = sum(r.chunks_run for r in results_a)
+    print(f"stream-abort: every view's found_pose and best supports equal "
+          f"the abort round's; chunks run {chunks} (abort rounds "
+          f"{sum(q.chunks_run for q in seq_a)}), launches per chunk "
+          f"{launches_a / chunks:.2f}", flush=True)
+
+    # (d) The command line, in subprocesses, writing under build/cli_out.
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for name, flags in (("rounds", ["--views", "3", "--hypotheses",
+                                    str(H_ROUND), "--times", "2"]),
+                        ("stream", ["--stream", "--abort", "--views", "3"])):
+        out = os.path.join(ROOT, "build", "cli_out", name)
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", CLI, *flags, "--output-dir", out], cwd=ROOT,
+            env=env, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"cli {name}| {line}", flush=True)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        summary = ("[stream] 3 views at" if name == "stream"
+                   else " - [Average Computation Time]")
+        assert summary in proc.stdout, name
+        m = re.search(r"hc_track kernel launches after the warm-up round: "
+                      r"(\d+) on cuda", proc.stdout)
+        assert m and int(m.group(1)) > 0, name
+        files = sorted(os.listdir(out))
+        want = (["GPU_Sols_Statistics.txt"] if name == "stream" else
+                ["GPUHC_Steps_of_Actual_Solutions.txt",
+                 "GPU_Converged_HC_tracks.txt", "GPU_Sols_Statistics.txt",
+                 "GPU_Timings.txt"])
+        assert files == want and all(
+            os.path.getsize(os.path.join(out, f)) for f in files), files
+        print(f"cli {name}: rc 0 in {secs:.1f} s, {m.group(1)} hc_track "
+              f"launches after its warm-up, files {files} in {out}",
+              flush=True)
+    return dict(launches_collecting_round=launches_c,
+                launches_stream=launches_s,
+                launches_per_stream_view=launches_s / len(STREAM_VIEWS),
+                launches_stream_abort=launches_a,
+                launches_per_abort_chunk=launches_a / chunks)
 
 
 def main() -> int:
@@ -665,6 +821,12 @@ def main() -> int:
               flush=True)
 
     print(f"phase 10: {time.perf_counter() - t_phases:.1f} s", flush=True)
+
+    # 11. The serving surface.
+    t_serve = time.perf_counter()
+    serve = serving(cfg, engine, view, rr, round_line, eng, _kernels)
+    k_reduced.update(serve)
+    print(f"phase 11: {time.perf_counter() - t_serve:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         **dict(name="hc_track", route="cuda", source=SOURCE, library_ms=None,

@@ -143,3 +143,185 @@ def test_measure_pose_error_equal():
                                 view.gt_pose21, view.gt_pose31)
     assert gt.within(config.RansacConfig())
     assert evl.SolutionStats(3, 1, 2, 10).pct_converged == 0.3
+
+
+def _seeded_solutions(rng, n=64, v=30):
+    """Seeded solutions, some with imaginary parts below the real-solution
+    tolerance, with exact and near duplicates (within 1e-5), and seeded
+    flags."""
+    x = (rng.standard_normal((n, v)) + 1j * rng.standard_normal((n, v))
+         ).astype(np.complex64)
+    rows = rng.random(n) < 0.4
+    x[rows] = x[rows].real + 1j * np.float32(5e-5)
+    for i in rng.choice(n, 12, replace=False):
+        x[i] = x[rng.integers(n)] + np.complex64(1e-5)
+    return x, rng.random(n) < 0.6, rng.random(n) < 0.1
+
+
+def test_collect_stats_equal():
+    rng = np.random.default_rng(11)
+    for _ in range(4):
+        x, conv, inf = _seeded_solutions(rng)
+        rc = config.RansacConfig()
+        a = evl.collect_stats(x, conv, inf, rc)
+        b = jevl.collect_stats(x, conv, inf, jconfig.RansacConfig())
+        assert dataclasses.astuple(a) == dataclasses.astuple(b)
+
+
+def test_find_unique_solutions_equal():
+    rng = np.random.default_rng(12)
+    for _ in range(4):
+        x, conv, _ = _seeded_solutions(rng)
+        a = evl.find_unique_solutions(x, conv, tol=1e-4)
+        b = jevl.find_unique_solutions(x, conv, tol=1e-4)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    none = np.zeros(8, bool)
+    assert np.array_equal(evl.find_unique_solutions(x[:8], none),
+                          jevl.find_unique_solutions(x[:8], none))
+
+
+def test_find_unique_solutions_reference_equal():
+    """Seeded batches over two RANSAC iterations of num_tracks paths, and a
+    batch built to hit the replaced skip set: path 0 has the later
+    duplicates 1 and 3 (so it is not counted, and {1, 3} are skipped), path
+    2 the duplicate 4, which replaces the skip set by {4}; so path 3, a
+    duplicate of path 0, is counted (an accumulated skip set would count
+    path 5 alone)."""
+    rng = np.random.default_rng(13)
+    for _ in range(4):
+        x, conv, _ = _seeded_solutions(rng)
+        a = evl.find_unique_solutions_reference(x, conv, 24)
+        b = jevl.find_unique_solutions_reference(x, conv, 24)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    x = (rng.standard_normal((6, 30))).astype(np.complex64)
+    x[1] = x[3] = x[0]
+    x[4] = x[2]
+    conv = np.ones(6, bool)
+    a = evl.find_unique_solutions_reference(x, conv, 6)
+    assert np.array_equal(a, jevl.find_unique_solutions_reference(x, conv, 6))
+    assert a.tolist() == [3, 5]
+    assert evl.find_unique_solutions(x, conv).tolist() == [0, 2, 5]
+
+
+def _seeded_poses(rng, n):
+    r = np.stack([np.linalg.qr(rng.standard_normal((3, 3)))[0]
+                  for _ in range(2 * n)]).astype(np.float32)
+    t = rng.standard_normal((2 * n, 3)).astype(np.float32)
+    return r[:n], r[n:], t[:n], t[n:]
+
+
+def test_min_residuals_over_sols_equal():
+    """Seeded poses with the ground truth among them (so one is within
+    tolerance), without it, and the empty set (residuals 100, False)."""
+    d = config.ransac_data_dir(config.EngineConfig(data_root=DATA))
+    view = data_io.load_ransac_view(d, 0)
+    rng = np.random.default_rng(14)
+    r21, r31, t21, t31 = _seeded_poses(rng, 16)
+    gt = (view.gt_pose21, view.gt_pose31)
+    with_gt = [a.copy() for a in (r21, r31, t21, t31)]
+    with_gt[0][5], with_gt[1][5] = gt[0][:, :3], gt[1][:, :3]
+    with_gt[2][5], with_gt[3][5] = gt[0][:, 3], gt[1][:, 3]
+    cases = [(r21, r31, t21, t31), tuple(with_gt),
+             tuple(a[:0] for a in (r21, r31, t21, t31))]
+    got = []
+    for c in cases:
+        a = evl.min_residuals_over_sols(*c, *gt, config.RansacConfig())
+        b = jevl.min_residuals_over_sols(*c, *gt, jconfig.RansacConfig())
+        assert dataclasses.astuple(a[0]) == dataclasses.astuple(b[0])
+        assert a[1] == b[1]
+        got.append(a)
+    assert got[1][1] and not got[0][1]
+    assert got[2] == (evl.PoseErrors(100.0, 100.0, 100.0, 100.0), False)
+
+
+def test_format_gt_deviation_equal():
+    d = config.ransac_data_dir(config.EngineConfig(data_root=DATA))
+    view = data_io.load_ransac_view(d, 1)
+    rng = np.random.default_rng(15)
+    r21, r31, t21, t31 = _seeded_poses(rng, 3)
+    for i in range(3):
+        args = (r21[i], r31[i], t21[i], t31[i], view.gt_pose21,
+                view.gt_pose31)
+        assert evl.format_gt_deviation(*args) == jevl.format_gt_deviation(
+            *args)
+
+
+def test_writers_byte_equal(tmp_path):
+    """The four output files, written by both packages from the same
+    seeded inputs (two RANSAC iterations of 24 tracks), byte for byte."""
+    rng = np.random.default_rng(16)
+    x, conv, inf = _seeded_solutions(rng, n=48)
+    timings = list(rng.random(5) * 300.0) + [27559.09338099991, 1.0]
+    stats = [evl.SolutionStats(int(a), int(b), int(c), 48)
+             for a, b, c in rng.integers(0, 40, (4, 3))]
+    jstats = [jevl.SolutionStats(*dataclasses.astuple(s)) for s in stats]
+    steps = rng.integers(0, 81, 7).astype(np.int32)
+    for mod, st, sub in ((evl, stats, "port"), (jevl, jstats, "jax")):
+        out = tmp_path / sub
+        out.mkdir()
+        mod.write_timings(str(out / "GPU_Timings.txt"), timings)
+        mod.write_sols_statistics(str(out / "GPU_Sols_Statistics.txt"), st)
+        mod.write_converged_sols(str(out / "GPU_Converged_HC_tracks.txt"),
+                                 x, conv, 24)
+        mod.write_hc_steps(str(out / "GPUHC_Steps_of_Actual_Solutions.txt"),
+                           steps)
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert len(names) == 4
+    for name in names:
+        a = (tmp_path / "port" / name).read_bytes()
+        assert a and a == (tmp_path / "jax" / name).read_bytes(), name
+
+
+def test_timing_summary_equal():
+    rng = np.random.default_rng(17)
+    for n in (1, 2, 9):
+        t = list(rng.random(n) * 500.0)
+        assert evl.timing_summary(t) == jevl.timing_summary(t)
+
+
+_YAML = """%YAML:1.0
+# settings of the trifocal problem, in the reference's format
+problem_name: trifocal_2op1p_30x30
+Num_Of_Vars: 30
+Num_Of_Params: 33
+Num_Of_Tracks: 307
+dHdx_Max_Terms: 8
+dHdx_Max_Parts: 5
+dHdt_Max_Terms: 22
+dHdt_Max_Parts: 6
+Max_Order_Of_T: 2
+GPUHC_Max_Steps: 60
+GPUHC_Max_Correction_Steps: 3
+GPUHC_Num_Of_Steps_to_Increase_Delta_t: 5
+Abort_RANSAC_by_Good_Sol: true
+RANSAC_Dataset: Synthetic
+Num_Of_GPUs: {gpus}
+Num_Of_Cores: 12
+"""
+
+
+@pytest.mark.parametrize("gpus", [1, 2])
+def test_load_problem_yaml_equal(tmp_path, monkeypatch, gpus):
+    """A reference-format file with its %YAML:1.0 line: the same
+    configuration field for field (the data root apart, whose default is
+    each package's own); Num_Of_GPUs 1 means num_devices None."""
+    for var in [v for v in os.environ if v.startswith("TPUHC_")]:
+        monkeypatch.delenv(var)
+    p = tmp_path / "gpuhc_settings.yaml"
+    p.write_text(_YAML.format(gpus=gpus))
+    a = config.load_problem_yaml(str(p))
+    b = jconfig.load_problem_yaml(str(p))
+    da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+    assert da.pop("data_root") == config.DEFAULT_DATA_ROOT
+    db.pop("data_root")
+    assert da == db
+    assert a.num_devices == (None if gpus == 1 else 2)
+    assert a.hc.max_steps == 60 and a.ransac.abort_by_good_sol
+    p.write_text("%YAML:1.0\n")
+    assert (dataclasses.asdict(config.load_problem_yaml(str(p)))["hc"]
+            == dataclasses.asdict(config.EngineConfig().hc))
+
+
+def test_num_ransac_views_equal():
+    d = config.ransac_data_dir(config.EngineConfig(data_root=DATA))
+    assert data_io.num_ransac_views(d) == jdata_io.num_ransac_views(d) == 3

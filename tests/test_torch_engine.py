@@ -17,6 +17,15 @@ differ by 3.2 % of paths (twice the JAX package's own disagreement), and
 the best supports by 0.2 % of the edgels (floor 5), the reference's
 _CC_SUP_FRAC.  tests/test_torch_tracker.py holds the tracker to the JAX
 kernel step by step.
+
+The port's round collects its solutions (``collect_solutions=True``), as
+the JAX round does.  The port's ``_score_round`` is also held to the JAX
+engine's on the JAX round's own solutions, both as a collecting and as a
+default round scores: the same candidates, found flag, actual-solution
+steps and per-path flags and steps, the best supports within the band
+above; and, collecting, the same any-within-tolerance flag, and the
+candidates' fundamental matrices and the residual minima within 1e-5
+relative.
 """
 
 import dataclasses
@@ -31,7 +40,10 @@ from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
     ransac as jransac,
 )
 from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
-from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import ransac
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+    fused,
+    ransac,
+)
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import config
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -56,7 +68,8 @@ def rounds():
     cfg = config.EngineConfig(data_root=DATA)
     port = engine.TrifocalPoseEngine(cfg, device="cpu")
     view = port.load_view(0)
-    rr = port.run_round(view, seed=0, num_hypotheses=_H)
+    rr = port.run_round(view, seed=0, num_hypotheses=_H,
+                        collect_solutions=True)
     jcfg = dataclasses.replace(cfg, problem=config.problem_config(cfg))
     ref = jengine.TrifocalPoseEngine(jcfg)
     rj = ref.run_round(view, seed=0, num_hypotheses=_H,
@@ -114,3 +127,76 @@ def test_round_outputs_well_formed(rounds):
         assert rr.pose_errors is not None
         for m in rr.best_pose:
             assert np.isfinite(m).all()
+
+
+def test_round_collects_its_solutions(rounds):
+    """The collecting round's solutions are its per-path outcomes on the
+    host, and its candidate fields have the candidates' length."""
+    _, rr, _, n_paths = rounds
+    sols = rr.solutions
+    assert sols.x.shape == (n_paths, 30) and sols.x.dtype == np.complex64
+    for f in ("converged", "inf_fail", "pruned", "num_steps"):
+        assert np.array_equal(getattr(sols, f), getattr(rr, f)), f
+    assert rr.cand_f21.shape == rr.cand_f31.shape == (rr.num_candidates, 3, 3)
+    assert np.isfinite(rr.cand_f21).all() and np.isfinite(rr.cand_f31).all()
+    if rr.num_candidates:
+        assert rr.min_residuals is not None
+        for a, b in zip(dataclasses.astuple(rr.min_residuals),
+                        dataclasses.astuple(rr.pose_errors)):
+            assert a <= b
+
+
+def _score_jax_solutions(rounds, collect):
+    """The port's _score_round over the JAX round's own solutions."""
+    view, _, rj, _ = rounds
+    cfg = config.EngineConfig(data_root=DATA)
+    port = engine.TrifocalPoseEngine(cfg, device="cpu")
+    s = rj.solutions
+    res = fused.TrackResult(**{
+        f: torch.as_tensor(np.array(getattr(s, f)))
+        for f in ("x", "converged", "inf_fail", "pruned", "num_steps")})
+    return view, port._score_round(
+        view, res, torch.as_tensor(view.edge_locations), collect), rj
+
+
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["collecting", "default"])
+def scored(rounds, request):
+    """Scored as a collecting round and as a default round, which shares
+    the scorer and skips the collecting fields."""
+    return _score_jax_solutions(rounds, request.param)
+
+
+@pytest.fixture(scope="module")
+def scored_collecting(rounds):
+    return _score_jax_solutions(rounds, True)
+
+
+def test_score_round_matches_jax_exactly(scored):
+    _, out, rj = scored
+    assert out["num_candidates"] == rj.num_candidates > 0
+    assert out["found_pose"] == rj.found_pose
+    assert np.array_equal(out["actual_sol_steps"], rj.actual_sol_steps)
+    assert (dataclasses.astuple(out["stats"])
+            == dataclasses.astuple(rj.stats))
+    for f in ("converged", "inf_fail", "pruned", "num_steps"):
+        assert np.array_equal(out[f], np.asarray(getattr(rj.solutions, f))), f
+
+
+def test_score_round_supports_within_band(scored):
+    view, out, rj = scored
+    tol = max(5, int(0.002 * view.edge_locations.shape[0]))
+    assert abs(out["best_support21"] - rj.best_support21) <= tol
+    assert abs(out["best_support31"] - rj.best_support31) <= tol
+
+
+def test_score_round_matrices_and_residuals_close(scored_collecting):
+    _, out, rj = scored_collecting
+    for f in ("cand_f21", "cand_f31"):
+        a, b = out[f], np.asarray(getattr(rj, f))
+        assert a.shape == b.shape == (rj.num_candidates, 3, 3), f
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), f
+    for a, b in zip(dataclasses.astuple(out["min_residuals"]),
+                    dataclasses.astuple(rj.min_residuals)):
+        assert abs(a - b) <= 1e-5 * abs(b), (a, b)
+    assert out["any_within_gt"] == rj.any_within_gt

@@ -23,15 +23,24 @@ source) equal their plain versions bit for bit on 3,070 paths (10 x the
 roots) for both programs, "replay" in the corrector_jacobian_reuse build
 and the evaluation phases in the split2 and abc builds, and each phase
 kernel fits as many blocks per SM as the tracker in its build.
+
+The serving surface at H = 100 (30,700 paths per view): the collecting
+round equals the default round path for path; run_stream (with the
+segmented and the one-call tracker) and the stream-abort pipeline (chunks
+of 10) equal run_round and the abort round per view on views 0-2; and a readback (segmented.Readback, the stream's
+and the segment loop's) is ready while work queued after it still runs,
+as its event shows.
 """
 
 import dataclasses
 import os
 import re
 
+import numpy as np
 import pytest
 import torch
 
+from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     _kernels,
@@ -458,3 +467,75 @@ def test_cuda_phase_blocks_per_sm(setup, phase):
     assert _kernels.hc_phase_blocks_per_sm(phase, hc) == \
         _kernels.hc_track_blocks_per_sm(hc) == (4 if phase == "replay"
                                                 else 5)
+
+
+_H_SERVE = 100
+
+
+@pytest.fixture(scope="module")
+def serving_engines(setup):
+    """The default engine, the one-call engine (compact_survivors off) and
+    the abort engine (chunks of 10), on cuda:0."""
+    cfg = setup[0]
+    cfg_o = dataclasses.replace(cfg, hc=dataclasses.replace(
+        cfg.hc, compact_survivors=False))
+    cfg_a = dataclasses.replace(cfg, ransac=dataclasses.replace(
+        cfg.ransac, abort_by_good_sol=True, abort_chunk=10,
+        stream_abort_chunk=10))
+    return {"segmented": engine.TrifocalPoseEngine(cfg),
+            "one_call": engine.TrifocalPoseEngine(cfg_o),
+            "abort": engine.TrifocalPoseEngine(cfg_a)}
+
+
+@pytest.mark.gpu
+def test_cuda_collecting_round_equals_the_default_round(serving_engines):
+    e = serving_engines["segmented"]
+    view = e.load_view(0)
+    rr = e.run_round(view, 0, _H_SERVE)
+    rc = e.run_round(view, 0, _H_SERVE, collect_solutions=True)
+    for f in ("converged", "inf_fail", "pruned", "num_steps"):
+        assert np.array_equal(getattr(rc, f), getattr(rr, f)), f
+        assert np.array_equal(getattr(rc.solutions, f), getattr(rr, f)), f
+    assert rc.solutions.x.shape == (_H_SERVE * e.problem.num_tracks, 30)
+    assert (rc.num_candidates, rc.best_support21, rc.best_support31,
+            rc.found_pose) == (rr.num_candidates, rr.best_support21,
+                               rr.best_support31, rr.found_pose)
+    assert rc.cand_f21.shape == (rc.num_candidates, 3, 3)
+    assert rc.min_residuals is not None and rc.any_within_gt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["segmented", "one_call", "abort"])
+def test_cuda_stream_equals_rounds_per_view(serving_engines, kind):
+    e = serving_engines[kind]
+    abort = kind == "abort"
+    views = [0, 1, 2]
+    results, vps = e.run_stream(views, _H_SERVE, 0)
+    assert len(results) == len(views) and vps > 0
+    for vi, r in zip(views, results):
+        q = e.run_round(e.load_view(vi), 0, _H_SERVE)
+        assert (r.found_pose, r.best_support21, r.best_support31) == (
+            q.found_pose, q.best_support21, q.best_support31), vi
+        if abort:
+            assert r.chunks_run == q.chunks_run, vi
+        else:
+            assert (dataclasses.astuple(r.stats)
+                    == dataclasses.astuple(q.stats)), vi
+            assert r.num_candidates == q.num_candidates, vi
+
+
+@pytest.mark.gpu
+def test_cuda_readback_does_not_wait_for_later_work(setup):
+    """A copy queued before a long kernel is ready, by its event, while
+    that kernel still runs: waiting for it does not wait for the stream."""
+    t = torch.arange(39, dtype=torch.float32, device="cuda") * 2
+    torch.cuda.synchronize()
+    pending = segmented.Readback(t)
+    torch.cuda._sleep(2_000_000_000)  # about a second of spinning
+    later = torch.cuda.Event()
+    later.record()
+    host = pending.wait()
+    assert not later.query()
+    assert host.tolist() == [2.0 * i for i in range(39)]
+    torch.cuda.synchronize()
+    assert later.query()

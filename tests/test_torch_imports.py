@@ -15,6 +15,7 @@ _JAX_PKG = "trifocal_pose_estimation_using_improved_gpuhc_tpu"
 _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.engine",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.cli",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.models.trifocal",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.eval",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.fused",

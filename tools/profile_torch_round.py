@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Profile one RANSAC round of the PyTorch/CUDA port on the card.
+"""Profile one RANSAC round, or a stream of views, of the PyTorch/CUDA port
+on the card.
 
     python3 tools/profile_torch_round.py [--hypotheses 100] [--view 0] [--seed 0]
-                                         [--abort]
+                                         [--abort] [--stream N]
 
 Runs a warm-up round of the engine's default configuration (or, with
 ``--abort``, of the TrunRANSAC abort round), then one round under
-``torch.profiler``, and prints: the card's name and power limit as
-nvidia-smi gives them, the round's host-clock spans (track_ms,
-total_ms), the device's busy time (the union of all kernel intervals)
-and idle share over the round, and the ten kernels with the most device
-time.  Needs a CUDA card; exits nonzero without one.
+``torch.profiler`` (with ``--stream N``, ``run_stream`` over N views,
+the data root's views in turn, in the abort pipeline with ``--abort``),
+and prints: the card's name and power limit as nvidia-smi gives them,
+the round's host-clock spans (track_ms, total_ms; for a stream, views/s
+and the mean per-view latency), the device's busy time (the union of all
+kernel intervals) and idle share over the profiled span, and the ten
+kernels with the most device time.  Needs a CUDA card; exits nonzero
+without one.
 """
 
 import argparse
@@ -48,6 +52,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--abort", action="store_true",
                     help="profile the abort round (abort_by_good_sol)")
+    ap.add_argument("--stream", type=int, default=0, metavar="N",
+                    help="profile run_stream over N views instead")
     ap.add_argument("--data-root",
                     default=os.path.join(ROOT, "data", "synth_trifocal"))
     args = ap.parse_args(argv)
@@ -57,8 +63,12 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        data_io,
+    )
     from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
         EngineConfig,
+        ransac_data_dir,
     )
 
     cfg = EngineConfig(data_root=args.data_root)
@@ -71,21 +81,35 @@ def main(argv=None) -> int:
     eng = engine.TrifocalPoseEngine(cfg)
     view = eng.load_view(args.view)
     eng.run_round(view, args.seed, args.hypotheses)  # warm-up
+    n_views = data_io.num_ransac_views(ransac_data_dir(cfg))
+    views = [(args.view + i) % n_views for i in range(args.stream)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rr = eng.run_round(view, args.seed, args.hypotheses)
+        if args.stream:
+            results, vps = eng.run_stream(views, args.hypotheses, args.seed)
+        else:
+            rr = eng.run_round(view, args.seed, args.hypotheses)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = _union_us([(e.time_range.start, e.time_range.end)
                          for e in kernels]) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}: H={args.hypotheses} "
-          f"round wall {wall_ms:.3f} ms (profiled), track_ms "
-          f"{rr.track_ms:.3f}, total_ms {rr.total_ms:.3f}; device busy "
-          f"{busy_ms:.3f} ms, idle share {1.0 - busy_ms / wall_ms:.4f}; "
-          f"{len(kernels)} device events"
-          + (f"; chunks run {rr.chunks_run}" if args.abort else ""))
+    if args.stream:
+        lat = [r.track_ms for r in results]
+        span = (f"stream of {len(views)} views wall {wall_ms:.3f} ms "
+                f"(profiled), {vps:.3f} views/s, per-view latency mean "
+                f"{sum(lat) / len(lat):.3f} ms, found "
+                f"{sum(r.found_pose for r in results)}/{len(results)}"
+                + (f", chunks run {sum(r.chunks_run for r in results)}"
+                   if args.abort else ""))
+    else:
+        span = (f"round wall {wall_ms:.3f} ms (profiled), track_ms "
+                f"{rr.track_ms:.3f}, total_ms {rr.total_ms:.3f}"
+                + (f", chunks run {rr.chunks_run}" if args.abort else ""))
+    print(f"{torch.cuda.get_device_name(0)}: H={args.hypotheses} {span}; "
+          f"device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / wall_ms:.4f}; {len(kernels)} device events")
     by_name = {}
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0))

@@ -1,0 +1,292 @@
+"""Command line: RANSAC rounds (or a stream of views) on the card, and the
+reference-format output files.
+
+Counterpart of the JAX package's ``cli.py``: the same flags, defaults,
+printed lines and output files, apart from the output directory, which is
+``build/cli_out`` unless ``--output-dir`` names another.  ``--platform`` is
+``gpu`` (the default: the first CUDA card, an error without one) or
+``cpu`` (an explicit request to run on the CPU).  ``--profile DIR`` writes a ``torch.profiler`` Chrome
+trace of the timed rounds into DIR.  The cross-check, the ablation ladder
+and hypothesis sharding are not ported yet: their flags are refused before
+any tracking.
+
+Usage:
+  python -m trifocal_pose_estimation_using_improved_gpuhc_torch.cli \\
+      [--views 1] [--hypotheses 100] [--times 1] [--platform gpu|cpu] \\
+      [--stream] [--abort] [--output-dir build/cli_out]
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import os
+import sys
+
+# Flags of the JAX CLI whose paths the port does not have yet, and the
+# ROADMAP.md Queue 1 item that ports each.
+_REFUSED = {
+    "cross_check": ("--cross-check", "item 4 (the cross-check, which needs "
+                    "the oracle tracker of item 3)"),
+    "cross_check_full": ("--cross-check-full", "item 4 (the cross-check, "
+                         "which needs the oracle tracker of item 3)"),
+    "ablation": ("--ablation", "item 7 (P2C and the ablation ladder)"),
+}
+
+
+# The JAX CLI writes into Output_Write_Files/ by default, which holds the
+# reference's committed outputs; the port writes under build/.
+DEFAULT_OUTPUT_DIR = os.path.join("build", "cli_out")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("-p", "--problem", default="trifocal_2op1p_30x30")
+    ap.add_argument("--views", type=int, default=1, help="number of dataset views")
+    ap.add_argument("--start-view", type=int, default=0)
+    ap.add_argument("--hypotheses", type=int, default=None,
+                    help="RANSAC iterations per round (default: config, 100)")
+    ap.add_argument("--times", type=int, default=1,
+                    help="TEST_RANSAC_TIMES: repeat rounds for timing stats")
+    ap.add_argument("--platform", default="gpu", choices=["gpu", "cpu"],
+                    help="gpu: the first CUDA card (an error without one); "
+                         "cpu: run on the CPU")
+    ap.add_argument("--cross-check", action="store_true",
+                    help="not ported yet (refused)")
+    ap.add_argument("--cross-check-full", action="store_true",
+                    help="not ported yet (refused)")
+    ap.add_argument("--dedup-mode", default="batch",
+                    choices=["batch", "reference"],
+                    help="unique-solution semantics: 'batch' dedups all "
+                         "H x tracks solutions; 'reference' reproduces the "
+                         "reference's count (RANSAC iteration 0 only)")
+    ap.add_argument("--abort", action="store_true",
+                    help="Abort_RANSAC_by_Good_Sol: stop once a pose with "
+                         ">=90%% inlier support is found on-device")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="devices to shard hypotheses over: only 1 (sharding "
+                         "is not ported yet)")
+    ap.add_argument("--data-root", default=None)
+    ap.add_argument("--output-dir", default=DEFAULT_OUTPUT_DIR)
+    ap.add_argument("--ablation", action="store_true",
+                    help="not ported yet (refused)")
+    ap.add_argument("--stream", action="store_true",
+                    help="streamed recovery: two views in flight on the card, "
+                         "one selection read back per view")
+    ap.add_argument("--eval-structure", default=None,
+                    choices=["classic", "gathered", "merged"],
+                    help="evaluator op structure (HCConfig.eval_structure)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the timed "
+                         "rounds into DIR")
+    ap.add_argument("--debug-gt-deviation", action="store_true",
+                    help="print the best pose's ground-truth deviation "
+                         "report per round")
+    return ap
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+
+    for key, (flag, item) in _REFUSED.items():
+        if getattr(args, key):
+            print(f"{flag} is not ported to the torch package yet: "
+                  f"ROADMAP.md Queue 1 {item}", file=sys.stderr)
+            return 2
+    if args.devices is not None and args.devices > 1:
+        print(f"--devices {args.devices} is not ported to the torch package "
+              f"yet: ROADMAP.md Queue 1 item 5 (hypothesis sharding)",
+              file=sys.stderr)
+        return 2
+
+    import torch
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.engine import (
+        TrifocalPoseEngine,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+        _kernels,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        evaluation as evl,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
+        DEFAULT_DATA_ROOT,
+        EngineConfig,
+        ProblemConfig,
+        load_problem_yaml,
+        problem_config,
+    )
+
+    # The problem folder's reference-format YAML when it has one; the flags
+    # override its settings.  Without one, the table dimensions come from
+    # the data root's problem.json (generated tables need not have the
+    # reference's term counts).
+    root = args.data_root or DEFAULT_DATA_ROOT
+    yaml_path = os.path.join(root, "problems", args.problem,
+                             "gpuhc_settings.yaml")
+    if os.path.exists(yaml_path):
+        cfg = dataclasses.replace(load_problem_yaml(yaml_path), data_root=root)
+    else:
+        cfg = EngineConfig(problem=ProblemConfig(name=args.problem),
+                           data_root=root)
+        cfg = dataclasses.replace(cfg, problem=problem_config(cfg))
+    if args.devices is not None:
+        cfg = dataclasses.replace(cfg, num_devices=None)
+    if args.abort:
+        cfg = dataclasses.replace(
+            cfg,
+            ransac=dataclasses.replace(cfg.ransac, abort_by_good_sol=True),
+        )
+    if args.eval_structure is not None:
+        cfg = dataclasses.replace(
+            cfg,
+            hc=dataclasses.replace(cfg.hc, eval_structure=args.eval_structure),
+        )
+
+    if args.platform == "gpu" and not torch.cuda.is_available():
+        print("no CUDA device; pass --platform cpu to run on the CPU",
+              file=sys.stderr)
+        return 2
+    engine = TrifocalPoseEngine(
+        cfg, device="cpu" if args.platform == "cpu" else None)
+    os.makedirs(args.output_dir, exist_ok=True)
+    print(f"[torch-hc] problem: {args.problem}, "
+          f"{engine.problem.num_tracks} tracks x "
+          f"{args.hypotheses or cfg.ransac.num_iterations} hypotheses on "
+          f"{engine.device}"
+          + (f" ({torch.cuda.get_device_name(engine.device)})"
+             if engine.device.type == "cuda" else ""))
+
+    timings, all_stats, found_count, err_lines = [], [], 0, []
+    view0 = engine.load_view(args.start_view)
+    engine.run_round(view0, seed=0, num_hypotheses=args.hypotheses)  # warm-up
+    _kernels.hc_track.launches = 0
+
+    def print_launches():
+        # None on the CPU, where the plain version tracks.
+        print(f" - hc_track kernel launches after the warm-up round: "
+              f"{_kernels.hc_track.launches} on {engine.device}")
+
+    if args.stream:
+        # One selection per view comes back: per-path HC step counts stay
+        # on the card, so the HC-steps files are not written.
+        print("[stream] note: per-path HC step counts stay on device in "
+              "stream mode; HC-steps output files will be empty (use a "
+              "non-stream run for them)")
+        vis = list(range(args.start_view, args.start_view + args.views))
+        results, vps = engine.run_stream(vis, num_hypotheses=args.hypotheses)
+        ok = sum(1 for r in results
+                 if r.pose_errors is not None and r.pose_errors.within(cfg.ransac))
+        print(f"[stream] {len(vis)} views at {vps:.2f} views/s; "
+              f"found {sum(r.found_pose for r in results)}/{len(vis)}; "
+              f"within GT tolerance {ok}/{len(vis)}")
+        evl.write_sols_statistics(
+            os.path.join(args.output_dir, "GPU_Sols_Statistics.txt"),
+            [r.stats for r in results],
+        )
+        print_launches()
+        return 0
+
+    prof_ctx = contextlib.nullcontext()
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if engine.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof_ctx = torch.profiler.profile(activities=activities)
+    last_rr = None
+    with prof_ctx as prof:
+        for vi in range(args.start_view, args.start_view + args.views):
+            view = engine.load_view(vi)
+            for ti in range(args.times):
+                rr = engine.run_round(
+                    view, seed=ti, num_hypotheses=args.hypotheses,
+                    collect_solutions=True,
+                )
+                last_rr = rr
+                timings.append(rr.track_ms)
+                all_stats.append(rr.stats)
+                if rr.found_pose:
+                    found_count += 1
+                pe = rr.pose_errors
+                status = "FOUND" if rr.found_pose else "no-pass"
+                line = (
+                    f"view {vi:03d} round {ti}: track {rr.track_ms:8.2f} ms, "
+                    f"conv {rr.stats.num_converged}, cand {rr.num_candidates}, "
+                    f"support {rr.best_support21}/{rr.best_support31} of {rr.num_edgels} "
+                    f"[{status}]"
+                )
+                if pe is not None:
+                    line += (
+                        f" rot ({pe.rot21:.4f}, {pe.rot31:.4f})"
+                        f" transl ({pe.transl21:.4f}, {pe.transl31:.4f})"
+                    )
+                    err_lines.append(pe)
+                print(line)
+                if args.debug_gt_deviation and rr.best_pose is not None:
+                    print(evl.format_gt_deviation(
+                        *rr.best_pose, view.gt_pose21, view.gt_pose31))
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(trace)
+        print(f"[profile] Chrome trace of the timed rounds: {trace}")
+
+    ts = evl.timing_summary(timings)
+    n_rounds = len(timings)
+    print(f"\n## {n_rounds} round(s) of RANSAC (path tracking wall-clock):")
+    print(f" - [Average Computation Time] {ts['avg_ms']:9.2f} (ms)")
+    print(f" - [Maximal Computation Time] {ts['max_ms']:9.2f} (ms)")
+    print(f" - [Minimal Computation Time] {ts['min_ms']:9.2f} (ms)")
+    print(f" - [Std dev Computation Time] {ts['std_ms']:9.2f} (ms)")
+    print(f" - Poses with >=90% inlier support: {found_count}/{n_rounds}")
+    if err_lines:
+        ok = sum(1 for p in err_lines if p.within(cfg.ransac))
+        print(f" - Best poses within GT tolerance (rot/transl < 0.1): {ok}/{len(err_lines)}")
+
+    evl.write_timings(os.path.join(args.output_dir, "GPU_Timings.txt"), timings)
+    evl.write_sols_statistics(
+        os.path.join(args.output_dir, "GPU_Sols_Statistics.txt"), all_stats
+    )
+    # The final round's converged tracks and the HC steps of its
+    # max-support solutions.
+    if last_rr is not None:
+        sols = last_rr.solutions
+        evl.write_converged_sols(
+            os.path.join(args.output_dir, "GPU_Converged_HC_tracks.txt"),
+            sols.x, sols.converged, engine.problem.num_tracks,
+        )
+        evl.write_hc_steps(
+            os.path.join(args.output_dir,
+                         "GPUHC_Steps_of_Actual_Solutions.txt"),
+            last_rr.actual_sol_steps,
+        )
+        if args.dedup_mode == "reference":
+            uniq = evl.find_unique_solutions_reference(
+                sols.x, sols.converged, engine.problem.num_tracks,
+                tol=cfg.ransac.duplicate_sol_tol,
+            )
+        else:
+            uniq = evl.find_unique_solutions(
+                sols.x, sols.converged, tol=cfg.ransac.duplicate_sol_tol
+            )
+        print(f" - Unique converged solutions (final round, "
+              f"{args.dedup_mode} mode): {uniq.size}"
+              f" of {int(sols.converged.sum())}")
+        st = dataclasses.replace(last_rr.stats, num_unique=int(uniq.size))
+        print(f" - Percentage of convergence {st.pct_converged:.4f}, "
+              f"infinity {st.pct_infinity:.4f}, real {st.pct_real:.4f}, "
+              f"unique {st.pct_unique:.4f}")
+        if last_rr.min_residuals is not None:
+            mr = last_rr.min_residuals
+            print(f" - Min residuals over all candidate sols: "
+                  f"rot ({mr.rot21:.4f}, {mr.rot31:.4f}) "
+                  f"transl ({mr.transl21:.4f}, {mr.transl31:.4f}); "
+                  f"any pose within GT tolerance: {last_rr.any_within_gt}")
+    print_launches()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

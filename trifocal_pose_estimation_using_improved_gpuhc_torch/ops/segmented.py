@@ -93,11 +93,35 @@ def score_slots(hc: HCConfig, fl: torch.Tensor,
     return sidx, newly[sidx]
 
 
+class Readback:
+    """A device tensor's copy to the host, queued behind the work on the
+    stream so far and waited for by an event: ``wait`` returns once that
+    work is done, whatever was queued after it.  (A plain ``.cpu()`` waits
+    for everything queued on the stream.)  On the CPU it is the tensor."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        self.host = t
+        if t.device.type == "cuda":
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
 class _Run:
     """One segmented tracking call in progress (see the module docstring).
 
     ``advance`` dispatches one segment and the boundary work and queues the
-    loop test; ``keep`` reads it; ``result`` undoes the packing."""
+    loop test; ``keep`` reads it; ``track_result`` undoes the packing and
+    ``result`` also reads the abort's outcome.  Two runs advanced in turns
+    keep the card busy: while the host waits for one run's loop test and
+    queues its next segment, the card tracks the other's."""
 
     def __init__(self, tr: "_Tracker", x0, target_params, edgels, intrinsics,
                  n_edgels):
@@ -158,22 +182,12 @@ class _Run:
         keep = (n_active > 0) & (self.si < tr.n_segments)
         if tr.abort:
             keep = keep & ~self.found
-        flag = torch.stack([n_active, keep.to(n_active.dtype)])
-        if self.dev.type == "cuda":
-            host = torch.empty(2, dtype=flag.dtype, pin_memory=True)
-            host.copy_(flag, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            self._flag = (host, event)
-        else:
-            self._flag = (flag, None)
+        self._flag = Readback(torch.stack([n_active,
+                                           keep.to(n_active.dtype)]))
 
     def keep(self) -> bool:
         """Whether another segment runs: waits for the queued loop test."""
-        host, event = self._flag
-        if event is not None:
-            event.synchronize()
-        n_active, keep = host.tolist()
+        n_active, keep = self._flag.wait().tolist()
         if self.tr.hc.compact_survivors:
             self.n_live = n_active
         return bool(keep)
@@ -206,19 +220,22 @@ class _Run:
         self.best_path = torch.where(better, self.order[sidx[sbest]],
                                      self.best_path)
 
-    def result(self) -> SegmentedResult:
+    def track_result(self) -> fused.TrackResult:
+        """The paths in their original order; queued, not waited for."""
         unperm = torch.argsort(self.order)
         x = self.x[unperm][:, self.inv]
         conv, inf, pruned, steps = fused.flags_outputs(self.tr.hc,
                                                        self.fl[unperm])
+        return fused.TrackResult(x=x, converged=conv, inf_fail=inf,
+                                 pruned=pruned, num_steps=steps)
+
+    def result(self) -> SegmentedResult:
         found, fpath, bsupp, bpath = torch.stack([
             self.found.long(), self.found_path, self.best_supp,
             self.best_path]).tolist()
         return SegmentedResult(
-            track=fused.TrackResult(x=x, converged=conv, inf_fail=inf,
-                                    pruned=pruned, num_steps=steps),
-            found=bool(found), found_path=fpath, best_support=bsupp,
-            best_path=bpath)
+            track=self.track_result(), found=bool(found), found_path=fpath,
+            best_support=bsupp, best_path=bpath)
 
 
 class _Tracker:

@@ -215,3 +215,48 @@ def problem_config(cfg: EngineConfig) -> ProblemConfig:
     return dataclasses.replace(
         cfg.problem, **{k: v for k, v in dims.items() if k in fields}
     )
+
+
+def load_problem_yaml(path: str) -> EngineConfig:
+    """A reference-format gpuhc_settings.yaml as an EngineConfig: the
+    reference's key set, with its defaults for absent keys.  Parsed with
+    PyYAML (on the GPU host too), after dropping the OpenCV-style
+    ``%YAML:1.0`` directive, which PyYAML rejects."""
+    import yaml
+
+    with open(path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines() if not ln.startswith("%")]
+    doc = yaml.safe_load("\n".join(lines)) or {}
+
+    prob = ProblemConfig(
+        name=doc.get("problem_name", "trifocal_2op1p_30x30"),
+        num_vars=int(doc.get("Num_Of_Vars", 30)),
+        num_params=int(doc.get("Num_Of_Params", 33)),
+        num_tracks=int(doc.get("Num_Of_Tracks", 312)),
+        hx_max_terms=int(doc.get("dHdx_Max_Terms", 8)),
+        hx_max_parts=int(doc.get("dHdx_Max_Parts", 5)),
+        ht_max_terms=int(doc.get("dHdt_Max_Terms", 16)),
+        ht_max_parts=int(doc.get("dHdt_Max_Parts", 6)),
+        max_order_of_t=int(doc.get("Max_Order_Of_T", 2)),
+        num_coeffs_from_params=int(doc.get("Num_Of_Coeffs_From_Params", 37)),
+    )
+    hc = HCConfig(
+        max_steps=int(doc.get("GPUHC_Max_Steps", 80)),
+        max_correction_steps=int(doc.get("GPUHC_Max_Correction_Steps", 3)),
+        steps_to_increase_delta_t=int(
+            doc.get("GPUHC_Num_Of_Steps_to_Increase_Delta_t", 4)
+        ),
+    )
+    ransac = RansacConfig(
+        abort_by_good_sol=bool(doc.get("Abort_RANSAC_by_Good_Sol", False)),
+        dataset=str(doc.get("RANSAC_Dataset", "Synthetic")),
+    )
+    # Num_Of_GPUs is the hypothesis sharding's device count; 1 is one card.
+    ndev = int(doc.get("Num_Of_GPUs", 1))
+    cores = doc.get("Num_Of_Cores")
+    return EngineConfig(
+        problem=prob, hc=hc, ransac=ransac,
+        num_devices=ndev if ndev > 1 else None,
+        num_cpu_cores=int(cores) if cores is not None else None,
+    )

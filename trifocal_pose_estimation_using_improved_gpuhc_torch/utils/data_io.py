@@ -102,3 +102,9 @@ def load_ransac_view(dataset_dir: str, view_index: int) -> RansacView:
     return RansacView(locations, tangents,
                       _load_pose("GT_Poses21", "GT_Poses21"),
                       _load_pose("GT_Poses31", "GT_Poses31"))
+
+
+def num_ransac_views(dataset_dir: str) -> int:
+    """The views of a RANSAC dataset: its Triplet_Edgels_* files."""
+    d = os.path.join(dataset_dir, "Triplet_Edgels")
+    return len([f for f in os.listdir(d) if f.startswith("Triplet_Edgels_")])
