@@ -4,14 +4,23 @@ subprocesses: one round at one hypothesis writes the reference's four
 output files and loads no jax module; its default output directory lies
 under build/; without a card and without ``--platform cpu`` it exits
 nonzero; the flags of paths not ported yet
-are refused before any tracking."""
+are refused before any tracking.
+
+The cross-check (``--cross-check``) runs in-process at one hypothesis on
+the CPU, with the engine's rounds recorded: it writes the oracle's two
+files, and its printed disagreement count, totals, supports and exit code
+are the JAX CLI's rule applied to the two rounds it ran, with the JAX
+CLI's band constants."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
+import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CLI = "trifocal_pose_estimation_using_improved_gpuhc_torch.cli"
@@ -80,8 +89,6 @@ def test_cli_writes_under_build_by_default():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--cross-check"], "item 4"),
-    (["--cross-check-full"], "item 4"),
     (["--ablation"], "item 7"),
     (["--devices", "2"], "item 5"),
 ])
@@ -94,3 +101,101 @@ def test_cli_refuses_flags_not_ported(tmp_path, flags, item):
     assert proc.returncode != 0
     assert f"ROADMAP.md Queue 1 {item}" in proc.stderr
     assert "round" not in proc.stdout and not out.exists()
+
+
+@pytest.fixture
+def _few_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_cli_cross_check_on_the_cpu(tmp_path, monkeypatch, capsys,
+                                    _few_threads):
+    """--cross-check at one hypothesis: the engine's round and the oracle's
+    (backend "xla", on the CPU), the CPU_* files, and the verdict under the
+    JAX CLI's rule (its constants) from the two rounds it ran."""
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu import cli as jcli
+    from trifocal_pose_estimation_using_improved_gpuhc_torch import cli, engine
+
+    rounds = []
+    run_round = engine.TrifocalPoseEngine.run_round
+
+    def recorded(self, *a, **k):
+        rr = run_round(self, *a, **k)
+        rounds.append((self.cfg.hc.backend, str(self.device), rr))
+        return rr
+
+    monkeypatch.setattr(engine.TrifocalPoseEngine, "run_round", recorded)
+    out = tmp_path / "out"
+    rc = cli.main(["--platform", "cpu", "--hypotheses", "1",
+                   "--cross-check", "--output-dir", str(out)])
+    text = capsys.readouterr().out
+    # Warm-up, the timed round, then the cross-check's two rounds.
+    assert [(b, d) for b, d, _ in rounds] == [("fused", "cpu")] * 3 + [
+        ("xla", "cpu")]
+    gpu, cpu = rounds[2][2], rounds[3][2]
+    n_paths = len(gpu.converged)
+    dis = int((gpu.solutions.converged != cpu.solutions.converged).sum())
+    tol_paths = max(3, int(jcli._CC_FLIP_FRAC * n_paths))
+    sup_tol = max(5, int(jcli._CC_SUP_FRAC * cpu.num_edgels))
+    ok = (dis <= tol_paths
+          and abs(gpu.stats.num_converged - cpu.stats.num_converged)
+          <= tol_paths
+          and abs(gpu.best_support21 - cpu.best_support21) <= sup_tol
+          and abs(gpu.best_support31 - cpu.best_support31) <= sup_tol)
+    line = (f"[cross-check] converged-flag disagreements: {dis}/{n_paths} "
+            f"(tol {tol_paths}); conv totals {gpu.stats.num_converged} vs "
+            f"{cpu.stats.num_converged} (tol {tol_paths}); support "
+            f"{gpu.best_support21}/{gpu.best_support31} vs "
+            f"{cpu.best_support21}/{cpu.best_support31} (tol {sup_tol}) -> "
+            f"{'AGREE' if ok else 'MISMATCH'}")
+    assert line in text.splitlines()
+    assert rc == (0 if ok else 1)
+    stats = (out / "CPU_Sols_Statistics.txt").read_text().split()
+    assert [int(v) for v in stats] == [cpu.stats.num_converged,
+                                       cpu.stats.num_infinity,
+                                       cpu.stats.num_real]
+    tracks = (out / "CPU_Converged_HC_tracks.txt").read_text()
+    assert tracks.startswith(
+        "-------------------- RANSAC Iteration 1 --------------------\n")
+    assert _listed_paths(tracks) == cpu.stats.num_converged
+
+
+def _listed_paths(text):
+    """The converged paths listed in a *_Converged_HC_tracks.txt."""
+    return len(re.findall(r"^\d+$", text, flags=re.M))
+
+
+def test_cross_check_bands_are_the_jax_clis():
+    from trifocal_pose_estimation_using_improved_gpuhc_tpu import cli as jcli
+    from trifocal_pose_estimation_using_improved_gpuhc_torch import cli
+
+    assert cli._CC_FLIP_FRAC == jcli._CC_FLIP_FRAC == 0.005
+    assert cli._CC_SUP_FRAC == jcli._CC_SUP_FRAC == 0.002
+
+
+@pytest.mark.parametrize("hyp,full,want", [
+    (None, False, 2), (1, False, 1), (5, False, 2), (None, True, 100),
+    (5, True, 5)])
+def test_cross_check_tiers(hyp, full, want):
+    """The fast tier checks min(hypotheses or 2, 2) hypotheses, the full
+    tier the whole workload, as the JAX CLI does."""
+    from trifocal_pose_estimation_using_improved_gpuhc_torch import cli
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        config,
+    )
+
+    args = cli._parser().parse_args(
+        [] if hyp is None else ["--hypotheses", str(hyp)])
+    assert cli.cross_check_hypotheses(args, config.EngineConfig(),
+                                      full) == want
+
+
+def test_cli_cross_check_without_a_card_exits_nonzero(tmp_path):
+    proc = _cli(["--hypotheses", "1", "--cross-check", "--output-dir",
+                 str(tmp_path / "out")], timeout=120, no_card=True)
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert not (tmp_path / "out").exists()

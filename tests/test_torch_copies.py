@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's host modules against the
-originals: configuration, data IO, host evaluation and the symbolic solve
-plans.  They must agree exactly: field for field, bit for bit."""
+originals: configuration, data IO, host evaluation, the symbolic solve
+plans and monodromy's host helpers.  They must agree exactly: field for
+field, bit for bit."""
 
 import dataclasses
 import os
@@ -8,6 +9,9 @@ import os
 import numpy as np
 import pytest
 
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import (
+    monodromy as jmonodromy,
+)
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import reduce as jredu
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
     schedule as jsched,
@@ -21,7 +25,10 @@ from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.utils import (
     evaluation as jevl,
 )
-from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
+from trifocal_pose_estimation_using_improved_gpuhc_torch.models import (
+    monodromy,
+    trifocal,
+)
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import reduce as redu
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     schedule as sched,
@@ -325,3 +332,36 @@ def test_load_problem_yaml_equal(tmp_path, monkeypatch, gpus):
 def test_num_ransac_views_equal():
     d = config.ransac_data_dir(config.EngineConfig(data_root=DATA))
     assert data_io.num_ransac_views(d) == jdata_io.num_ransac_views(d) == 3
+
+
+def test_monodromy_dedup_equal():
+    """Seeded rows, some repeated within the tolerance, some just outside,
+    some far: the same rows are kept in the same order."""
+    rng = np.random.default_rng(5)
+    sols = (rng.standard_normal((6, 30))
+            + 1j * rng.standard_normal((6, 30))).astype(np.complex64)
+    new = np.concatenate([
+        sols[[1, 4]] + 2e-4, sols[[0]] + 5e-3,
+        (3 * rng.standard_normal((4, 30))).astype(np.complex64),
+        sols[[2]]]).astype(np.complex64)
+    new = np.concatenate([new, new[5:7]])   # duplicates among the new rows
+    for start in (sols, sols[:0]):
+        ours = monodromy._dedup(start, new, 1e-3)
+        theirs = jmonodromy._dedup(start, new, 1e-3)
+        assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+        assert len(sols[:0]) < len(ours) < len(start) + len(new)
+
+
+def test_write_start_system_byte_equal(tmp_path):
+    p = trifocal.TrifocalProblem.load(config.EngineConfig(data_root=DATA))
+    res = monodromy.MonodromyResult(
+        params=np.asarray(p.start_params),
+        solutions=np.asarray(p.start_sols)[:7], loops_run=2, history=[7, 7])
+    jres = jmonodromy.MonodromyResult(**dataclasses.asdict(res))
+    for mod, r, d in ((monodromy, res, "ours"), (jmonodromy, jres, "jax")):
+        (tmp_path / d).mkdir()
+        mod.write_start_system(str(tmp_path / d / "start_params.txt"),
+                               str(tmp_path / d / "start_sols.txt"), r)
+    for name in ("start_params.txt", "start_sols.txt"):
+        assert ((tmp_path / "ours" / name).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes()), name

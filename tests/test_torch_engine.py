@@ -18,6 +18,14 @@ the best supports by 0.2 % of the edgels (floor 5), the reference's
 _CC_SUP_FRAC.  tests/test_torch_tracker.py holds the tracker to the JAX
 kernel step by step.
 
+The port's oracle round (``backend="xla"``, ops/tracker.py) on the same
+inputs is held to the JAX round, which is the JAX oracle's: they are two
+float32 implementations of one tracker, and on these 614 paths they
+disagree on 9 converged, 5 inf and 11 pruned flags (1.8 % at most,
+measured); the same 3.2 % band applies, and the supports within 0.2 %.
+As in the JAX engine, the oracle round with the TrunRANSAC abort flag
+tracks every hypothesis (the abort needs the segmented tracker).
+
 The port's round collects its solutions (``collect_solutions=True``), as
 the JAX round does.  The port's ``_score_round`` is also held to the JAX
 engine's on the JAX round's own solutions, both as a collecting and as a
@@ -77,6 +85,17 @@ def rounds():
     return view, rr, rj, _H * port.problem.num_tracks
 
 
+@pytest.fixture(scope="module")
+def xla_round(rounds):
+    view, _, rj, n_paths = rounds
+    cfg = config.EngineConfig(data_root=DATA, hc=config.HCConfig(
+        backend="xla"))
+    port = engine.TrifocalPoseEngine(cfg, device="cpu")
+    rx = port.run_round(view, seed=0, num_hypotheses=_H,
+                        collect_solutions=True)
+    return view, rx, rj, n_paths
+
+
 def test_sampling_and_targets_bit_equal():
     cfg = config.EngineConfig(data_root=DATA)
     view = engine.TrifocalPoseEngine(cfg, device="cpu").load_view(0)
@@ -96,6 +115,56 @@ def test_engine_runs_on_the_card_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine.TrifocalPoseEngine(cfg)
     assert engine.TrifocalPoseEngine(cfg, device="cpu").device.type == "cpu"
+
+
+def test_xla_engine_runs_on_the_card_by_default(monkeypatch):
+    """The oracle engine too: no device means cuda:0, which raises without
+    a card, and the CPU only when asked for."""
+    cfg = config.EngineConfig(data_root=DATA, hc=config.HCConfig(
+        backend="xla"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        engine.TrifocalPoseEngine(cfg)
+    e = engine.TrifocalPoseEngine(cfg, device="cpu")
+    assert e.device.type == "cpu" and not e._segmented
+
+
+@pytest.mark.parametrize("flag", ["converged", "inf_fail", "pruned"])
+def test_xla_round_flags_within_band(xla_round, flag):
+    _, rx, rj, n_paths = xla_round
+    a = rx.solutions
+    b = rj.solutions
+    assert getattr(a, flag).shape == (n_paths,)
+    assert int((getattr(a, flag) != np.asarray(getattr(b, flag))).sum()) \
+        <= int(_FLIP_FRAC * n_paths)
+
+
+def test_xla_round_supports_within_band(xla_round):
+    view, rx, rj, n_paths = xla_round
+    tol = max(5, int(0.002 * view.edge_locations.shape[0]))
+    assert abs(rx.best_support21 - rj.best_support21) <= tol
+    assert abs(rx.best_support31 - rj.best_support31) <= tol
+    assert abs(rx.stats.num_converged - rj.stats.num_converged) <= int(
+        _FLIP_FRAC * n_paths)
+    assert rx.solutions.x.dtype == np.complex64
+
+
+def test_xla_round_with_abort_tracks_every_hypothesis(rounds):
+    """The abort flag does not chunk the oracle's round (a short budget of
+    6 steps; 3 hypotheses, which the abort would track in chunks of 1)."""
+    view = rounds[0]
+    cfg = config.EngineConfig(
+        data_root=DATA,
+        hc=config.HCConfig(backend="xla", max_steps=6),
+        ransac=config.RansacConfig(abort_by_good_sol=True, abort_chunk=1))
+    port = engine.TrifocalPoseEngine(cfg, device="cpu")
+    assert not port._abort and not port._segmented
+    rr = port.run_round(view, seed=0, num_hypotheses=3)
+    T = port.problem.num_tracks
+    assert rr.chunks_run == 1 and rr.stats.num_paths == 3 * T
+    # Every hypothesis's paths were tracked (a skipped chunk's paths would
+    # have taken no step).
+    assert (rr.num_steps.reshape(3, T) > 0).all()
 
 
 @pytest.mark.parametrize("flag", ["converged", "inf_fail", "pruned"])

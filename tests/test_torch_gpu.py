@@ -30,6 +30,14 @@ segmented and the one-call tracker) and the stream-abort pipeline (chunks
 of 10) equal run_round and the abort round per view on views 0-2; and a readback (segmented.Readback, the stream's
 and the segment loop's) is ready while work queued after it still runs,
 as its event shows.
+
+The oracle slice: the kernel with per-path start systems (dynamic_start,
+start = target - diff) and TrunPaths off, monodromy's configuration,
+equals track_plain bit for bit on an arbitrary leg; monodromy_solve on the
+kernel equals it on track_plain (history and roots); the oracle tracker
+(ops/tracker.py) on the card agrees with itself on the CPU within the
+engine tests' band (3.2 % of flags; x within 1e-3 where both converge, on
+the paths 1e-7 nudges do not move by 1e-3).
 """
 
 import dataclasses
@@ -41,13 +49,17 @@ import pytest
 import torch
 
 from trifocal_pose_estimation_using_improved_gpuhc_torch import engine
-from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
+from trifocal_pose_estimation_using_improved_gpuhc_torch.models import (
+    monodromy,
+    trifocal,
+)
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     _kernels,
     fused,
     phases,
     ransac,
     segmented,
+    tracker,
 )
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
     config,
@@ -539,3 +551,84 @@ def test_cuda_readback_does_not_wait_for_later_work(setup):
     assert host.tolist() == [2.0 * i for i in range(39)]
     torch.cuda.synchronize()
     assert later.query()
+
+
+def _leg(port, x0):
+    """A monodromy-like leg: the committed roots from the start parameters
+    to a random complex point of the same scale (per-path starts)."""
+    rng = np.random.default_rng(3)
+    n, p = x0.shape[0], len(port.start_params)
+    p_from = torch.as_tensor(port.start_params, device=x0.device).expand(
+        n, p)
+    p_to = p_from + torch.as_tensor(
+        (rng.standard_normal(p) + 1j * rng.standard_normal(p)).astype(
+            np.complex64), device=x0.device)
+    p_to[:, -1] = 1.0
+    return p_to.contiguous(), (p_to - p_from).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("basis", ["efg", "abc"])
+def test_cuda_dynamic_start_untruncated_matches_track_plain(setup, basis):
+    cfg, port, x0, _ = setup
+    hc = dataclasses.replace(cfg.hc, truncate_paths=False,
+                             pair_coef_basis=basis)
+    _kernels.build_hc_track([hc])
+    T = port.num_tracks
+    tgt, diff = _leg(port, x0[:T])
+    before = _kernels.hc_track.launches
+    k = fused.make_track_fn(port, hc, dynamic_start=True)(x0[:T], tgt, diff)
+    assert _kernels.hc_track.launches == before + 1
+    p = fused.make_plain_track_fn(port, hc, dynamic_start=True)(
+        x0[:T], tgt, diff)
+    torch.cuda.synchronize()
+    assert int(k.converged.sum()) > 0 and not bool(k.pruned.any())
+    _assert_same(k, p)
+
+
+@pytest.mark.gpu
+def test_cuda_monodromy_on_the_kernel_equals_track_plain(setup):
+    cfg, port, _, _ = setup
+    hc = dataclasses.replace(cfg.hc, truncate_paths=False)
+    kw = dict(seed_sols=np.asarray(port.start_sols)[:24], target_count=40,
+              max_loops=1, rng_seed=2, leg_batch=32)
+    before = _kernels.hc_track.launches
+    ours = monodromy.monodromy_solve(port, cfg.hc, **kw)
+    assert _kernels.hc_track.launches == before + 3
+    ref = monodromy.monodromy_solve(
+        port, hc, track_fn=fused.make_plain_track_fn(port, hc,
+                                                     dynamic_start=True),
+        device="cuda", **kw)
+    assert ours.history == ref.history and ours.history[-1] > 24
+    assert np.array_equal(ours.solutions, ref.solutions)
+
+
+@pytest.mark.gpu
+def test_cuda_oracle_matches_the_cpu_oracle(setup):
+    """Flags within the band on every path; x within 1e-3 where both
+    converge, on the paths that four 1e-7 relative nudges (run on the card
+    in one batch with the inputs) move by less than 1e-3: on the CPU alone
+    such a nudge moves one of these paths' converged x by 35-48 %."""
+    cfg, port, x0, tgt = setup
+    track = tracker.make_track_fn(port, cfg.hc)
+    n = x0.shape[0]
+    runs = [(x0, tgt)]
+    for k in range(4):
+        gen = torch.Generator(device="cuda").manual_seed(k)
+        runs.append(tuple(
+            a * (1 + 1e-7 * torch.randn(a.shape, generator=gen,
+                                        device="cuda"))
+            for a in (x0, tgt)))
+    g = track(*(torch.cat(parts) for parts in zip(*runs)))
+    c = track(x0.cpu(), tgt.cpu())
+    gx = g.x.cpu().reshape(len(runs), n, -1)
+    for f in ("converged", "inf_fail", "pruned"):
+        assert int((getattr(g, f).cpu()[:n] != getattr(c, f)).sum()) <= int(
+            0.032 * n), f
+    scale = gx[0].abs().max(dim=1).values.clamp(min=1.0)
+    calm = ((gx[1:] - gx[0]).abs().max(dim=2).values / scale < 1e-3).all(0)
+    both = g.converged.cpu()[:n] & c.converged
+    assert int((both & calm).sum()) >= 0.75 * int(both.sum()) > 0
+    err = (gx[0] - c.x).abs().max(dim=1).values / c.x.abs().max(
+        dim=1).values.clamp(min=1.0)
+    assert float(err[both & calm].max()) < 1e-3

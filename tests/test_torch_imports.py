@@ -17,10 +17,13 @@ _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch.engine",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.cli",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.models.trifocal",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.models.monodromy",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.eval",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.fused",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops._kernels",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.bound",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.linalg",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.tracker",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.phases",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.ransac",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.reduce",

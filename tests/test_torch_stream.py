@@ -3,7 +3,8 @@
 The stream runs the engine's tracker on the same inputs as ``run_round``,
 so per view it must give that round's result: the four counts, the best
 supports, the found flag and the best pose, with the segmented tracker
-(the default) and with the one-call tracker (``compact_survivors`` off).  With ``abort_by_good_sol`` it
+(the default), with the one-call tracker (``compact_survivors`` off) and
+with the oracle (``backend="xla"``).  With ``abort_by_good_sol`` it
 must give the abort round's per view: the chunks run, the found flag, the
 best supports and the counts over the chunks run.
 
@@ -89,14 +90,14 @@ def _same_counts(r, rr):
     assert r.num_edgels == rr.num_edgels
 
 
-@pytest.mark.parametrize("compact", [True, False],
-                         ids=["segmented", "one_call"])
-def test_stream_equals_round_per_view(monkeypatch, compact):
-    """The segmented tracker's interleaved runs and the one-call
-    tracker's single launches."""
+@pytest.mark.parametrize("knobs", [
+    dict(compact_survivors=True), dict(compact_survivors=False),
+    dict(backend="xla")], ids=["segmented", "one_call", "oracle"])
+def test_stream_equals_round_per_view(monkeypatch, knobs):
+    """The segmented tracker's interleaved runs, the one-call tracker's
+    single launches and the oracle's single calls (``_OneCall``)."""
     cfg = _patched(monkeypatch, [0])
-    cfg = dataclasses.replace(cfg, hc=dataclasses.replace(
-        cfg.hc, compact_survivors=compact))
+    cfg = dataclasses.replace(cfg, hc=dataclasses.replace(cfg.hc, **knobs))
     port = engine.TrifocalPoseEngine(cfg, device="cpu")
     views = [0, 1, 2]
     results, vps = port.run_stream(views, num_hypotheses=_H)

@@ -6,14 +6,19 @@ printed lines and output files, apart from the output directory, which is
 ``build/cli_out`` unless ``--output-dir`` names another.  ``--platform`` is
 ``gpu`` (the default: the first CUDA card, an error without one) or
 ``cpu`` (an explicit request to run on the CPU).  ``--profile DIR`` writes a ``torch.profiler`` Chrome
-trace of the timed rounds into DIR.  The cross-check, the ablation ladder
-and hypothesis sharding are not ported yet: their flags are refused before
-any tracking.
+trace of the timed rounds into DIR.  ``--cross-check`` (2 hypotheses) and
+``--cross-check-full`` (the whole workload) then run round 0 again through
+the engine and through the full-pivot oracle tracker on the CPU
+(``backend="xla"``), write ``CPU_Sols_Statistics.txt`` and
+``CPU_Converged_HC_tracks.txt``, and exit 1 when the two disagree beyond
+the JAX package's bands.  The ablation ladder and hypothesis sharding are
+not ported yet: their flags are refused before any tracking.
 
 Usage:
   python -m trifocal_pose_estimation_using_improved_gpuhc_torch.cli \\
       [--views 1] [--hypotheses 100] [--times 1] [--platform gpu|cpu] \\
-      [--stream] [--abort] [--output-dir build/cli_out]
+      [--stream] [--abort] [--cross-check | --cross-check-full] \\
+      [--output-dir build/cli_out]
 """
 
 from __future__ import annotations
@@ -27,12 +32,14 @@ import sys
 # Flags of the JAX CLI whose paths the port does not have yet, and the
 # ROADMAP.md Queue 1 item that ports each.
 _REFUSED = {
-    "cross_check": ("--cross-check", "item 4 (the cross-check, which needs "
-                    "the oracle tracker of item 3)"),
-    "cross_check_full": ("--cross-check-full", "item 4 (the cross-check, "
-                         "which needs the oracle tracker of item 3)"),
     "ablation": ("--ablation", "item 7 (P2C and the ablation ladder)"),
 }
+
+# The JAX package's cross-check bands (its cli.py): converged-flag
+# disagreements and converged totals within 0.5 % of the paths (floor 3),
+# best supports within 0.2 % of the edgels (floor 5).
+_CC_FLIP_FRAC = 0.005
+_CC_SUP_FRAC = 0.002
 
 
 # The JAX CLI writes into Output_Write_Files/ by default, which holds the
@@ -53,9 +60,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="gpu: the first CUDA card (an error without one); "
                          "cpu: run on the CPU")
     ap.add_argument("--cross-check", action="store_true",
-                    help="not ported yet (refused)")
+                    help="run round 0 (2 hypotheses) again through the "
+                         "full-pivot oracle on the CPU and compare")
     ap.add_argument("--cross-check-full", action="store_true",
-                    help="not ported yet (refused)")
+                    help="the cross-check over the whole hypothesis "
+                         "workload (minutes of CPU)")
     ap.add_argument("--dedup-mode", default="batch",
                     choices=["batch", "reference"],
                     help="unique-solution semantics: 'batch' dedups all "
@@ -112,26 +121,11 @@ def main(argv=None) -> int:
         evaluation as evl,
     )
     from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
-        DEFAULT_DATA_ROOT,
-        EngineConfig,
-        ProblemConfig,
-        load_problem_yaml,
-        problem_config,
+        config_for_data_root,
     )
 
-    # The problem folder's reference-format YAML when it has one; the flags
-    # override its settings.  Without one, the table dimensions come from
-    # the data root's problem.json (generated tables need not have the
-    # reference's term counts).
-    root = args.data_root or DEFAULT_DATA_ROOT
-    yaml_path = os.path.join(root, "problems", args.problem,
-                             "gpuhc_settings.yaml")
-    if os.path.exists(yaml_path):
-        cfg = dataclasses.replace(load_problem_yaml(yaml_path), data_root=root)
-    else:
-        cfg = EngineConfig(problem=ProblemConfig(name=args.problem),
-                           data_root=root)
-        cfg = dataclasses.replace(cfg, problem=problem_config(cfg))
+    # The flags override the data root's settings.
+    cfg = config_for_data_root(args.data_root, args.problem)
     if args.devices is not None:
         cfg = dataclasses.replace(cfg, num_devices=None)
     if args.abort:
@@ -285,6 +279,77 @@ def main(argv=None) -> int:
                   f"transl ({mr.transl21:.4f}, {mr.transl31:.4f}); "
                   f"any pose within GT tolerance: {last_rr.any_within_gt}")
     print_launches()
+    if args.cross_check or args.cross_check_full:
+        return run_cross_check(engine, cfg, args, view0,
+                               full=args.cross_check_full)
+    return 0
+
+
+def cross_check_hypotheses(args, cfg, full: bool) -> int:
+    """The cross-check's hypotheses: the whole workload for the full tier,
+    else at most 2 (the JAX CLI's fast tier)."""
+    if full:
+        return args.hypotheses or cfg.ransac.num_iterations
+    return min(args.hypotheses or 2, 2)
+
+
+def run_cross_check(engine, cfg, args, view0, full: bool) -> int:
+    """The reference's correctness story: round 0 (view ``view0``, seed 0)
+    through the engine and through an oracle engine (``backend="xla"``)
+    on the CPU, compared under the JAX package's bands.  Writes the
+    oracle's statistics and converged tracks into the output directory;
+    returns 1 on MISMATCH."""
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.engine import (
+        TrifocalPoseEngine,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+        _kernels,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        evaluation as evl,
+    )
+
+    h_cc = cross_check_hypotheses(args, cfg, full)
+    print(f"\n[cross-check] re-running round 0 ({h_cc} hypotheses) on the "
+          "CPU backend ...")
+    cpu_cfg = dataclasses.replace(
+        cfg, hc=dataclasses.replace(cfg.hc, backend="xla"))
+    launches = _kernels.hc_track.launches
+    rr_gpu = engine.run_round(view0, seed=0, num_hypotheses=h_cc,
+                              collect_solutions=True)
+    print(f"[cross-check] hc_track kernel launches in the {engine.device} "
+          f"round: {_kernels.hc_track.launches - launches}")
+    cpu_engine = TrifocalPoseEngine(cpu_cfg, device="cpu")
+    rr = cpu_engine.run_round(view0, seed=0, num_hypotheses=h_cc,
+                              collect_solutions=True)
+    print(f"cpu-hc: conv {rr.stats.num_converged}, cand {rr.num_candidates}, "
+          f"support {rr.best_support21}/{rr.best_support31} of "
+          f"{rr.num_edgels}")
+    evl.write_sols_statistics(
+        os.path.join(args.output_dir, "CPU_Sols_Statistics.txt"), [rr.stats])
+    evl.write_converged_sols(
+        os.path.join(args.output_dir, "CPU_Converged_HC_tracks.txt"),
+        rr.solutions.x, rr.solutions.converged,
+        cpu_engine.problem.num_tracks)
+    n_paths = h_cc * engine.problem.num_tracks
+    dis = int((rr_gpu.solutions.converged != rr.solutions.converged).sum())
+    tol_paths = max(3, int(_CC_FLIP_FRAC * n_paths))
+    sup_tol = max(5, int(_CC_SUP_FRAC * rr.num_edgels))
+    ok = (dis <= tol_paths
+          and abs(rr_gpu.stats.num_converged - rr.stats.num_converged)
+          <= tol_paths
+          and abs(rr_gpu.best_support21 - rr.best_support21) <= sup_tol
+          and abs(rr_gpu.best_support31 - rr.best_support31) <= sup_tol)
+    print(f"[cross-check] converged-flag disagreements: {dis}/{n_paths} "
+          f"(tol {tol_paths}); conv totals "
+          f"{rr_gpu.stats.num_converged} vs {rr.stats.num_converged} "
+          f"(tol {tol_paths}); support "
+          f"{rr_gpu.best_support21}/{rr_gpu.best_support31} vs "
+          f"{rr.best_support21}/{rr.best_support31} (tol {sup_tol}) -> "
+          f"{'AGREE' if ok else 'MISMATCH'}")
+    if not ok:
+        print("[cross-check] FAILED: device and CPU-HC results diverge")
+        return 1
     return 0
 
 

@@ -4,10 +4,13 @@ Counterpart of the JAX package's ``engine.py`` (``run_round``): sample
 edgel triplets, build target parameters, track num_tracks x H paths,
 score the converged candidates on the device, pick the best-supported
 pose and measure its residuals against ground truth.  The tracker is the
-JAX engine's choice: the segmented one (``ops/segmented.py``) when survivor
-compaction or the TrunRANSAC abort is on, else one call over the whole
-budget (``ops/fused.py``).  With ``abort_by_good_sol`` the round tracks
-the hypotheses in chunks and stops at the first chunk that finds a pose.
+JAX engine's choice: for ``backend="fused"`` the segmented one
+(``ops/segmented.py``) when survivor compaction or the TrunRANSAC abort is
+on, else one call over the whole budget (``ops/fused.py``); for
+``backend="xla"`` the full-pivot oracle (``ops/tracker.py``) in one call.
+With ``abort_by_good_sol`` the kernel's round tracks the hypotheses in
+chunks and stops at the first chunk that finds a pose; the oracle's round,
+as in the JAX engine, tracks them all.
 Every round scores its candidates as the JAX engine's ``_score_round``
 does; ``run_round(..., collect_solutions=True)`` also returns every path's
 solution, the candidates' fundamental matrices and the residuals' minima
@@ -25,7 +28,10 @@ the last two not together, and the evaluation variants eval_precision
 is a build of the tracker kernel of its own.
 
 The engine runs on the card (``cuda:0``) unless the caller asks for
-another device, and never moves work elsewhere.
+another device, and never moves work elsewhere.  Unlike the JAX engine,
+which tracks with its oracle whenever it runs on the CPU, it keeps the
+configured backend on every device: on the CPU ``backend="fused"`` runs
+``fused.track_plain``, the kernel's twin.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     fused,
     ransac,
     segmented,
+    tracker,
 )
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import data_io
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import evaluation as evl
@@ -132,13 +139,18 @@ class TrifocalPoseEngine:
         self.cfg = cfg
         self.device = torch.device(device)
         self.problem = trifocal.TrifocalProblem.load(cfg)
-        self._abort = cfg.ransac.abort_by_good_sol
-        self._segmented = track_fn is None and (
+        oracle = cfg.hc.backend == "xla"
+        # The abort needs the segmented tracker: the oracle's round, as the
+        # JAX engine's, runs every hypothesis.
+        self._abort = cfg.ransac.abort_by_good_sol and not oracle
+        self._segmented = track_fn is None and not oracle and (
             cfg.hc.compact_survivors or self._abort)
         if track_fn is not None and self._abort:
             raise ValueError("the abort round runs the segmented tracker")
         if track_fn is not None:
             self.track = track_fn
+        elif oracle:
+            self.track = tracker.make_track_fn(self.problem, cfg.hc)
         elif self._segmented:
             self.track = segmented.make_segmented_track_fn(
                 self.problem, cfg.hc, cfg.ransac)

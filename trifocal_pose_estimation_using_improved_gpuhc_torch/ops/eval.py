@@ -27,6 +27,15 @@ def _idx(a, device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.long, device=device)
 
 
+def factored_tables(problem: TrifocalProblem, device) -> dict:
+    """The problem's factored tables as tensors on ``device`` (index
+    arrays as int64), for callers that evaluate many times on one device:
+    pass them to ``eval_all_factored`` as ``tables``."""
+    return {k: (_idx(v, device) if v.dtype.kind in "iu"
+                else torch.as_tensor(v, device=device))
+            for k, v in vars(problem.factored).items()}
+
+
 def param_homotopy(
     t: torch.Tensor, start_params: torch.Tensor, target_params: torch.Tensor
 ) -> torch.Tensor:
@@ -73,7 +82,8 @@ def eval_Hx_direct(problem: TrifocalProblem, x: torch.Tensor,
 
 def complex_matmul_real(z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """(B, K) complex @ (K, N) real -> (B, N) complex, as two real matmuls
-    (float32; the card must not run them in TF32)."""
+    (in z's real dtype; the card must not run them in TF32)."""
+    c = c.to(z.real.dtype)
     return torch.complex(z.real @ c, z.imag @ c)
 
 
@@ -84,37 +94,37 @@ def eval_all_factored(
     diff_params: torch.Tensor,
     need_h: bool = True,
     need_ht: bool = True,
+    tables: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Fused (Hx, H, -Ht) in the monomial-factored form.
 
     Returns Hx (B, E, V) always; H and -Ht (B, E) or None per the flags.
+    ``tables``: ``factored_tables(problem, x.device)``, made here if not
+    given.
     """
-    f = problem.factored
+    f = factored_tables(problem, x.device) if tables is None else tables
     n = problem.num_vars
-    dev = x.device
     xp = pad_vars(x)
-    pa = p[:, _idx(f.pp_a, dev)]
-    pb = p[:, _idx(f.pp_b, dev)]
+    pa = p[:, f["pp_a"]]
+    pb = p[:, f["pp_b"]]
     P = pa * pb
 
-    X2 = xp[:, _idx(f.qm_a, dev)] * xp[:, _idx(f.qm_b, dev)]
-    PX2 = P[:, _idx(f.hx_q, dev)] * X2[:, _idx(f.hx_m, dev)]
-    hx_nz = complex_matmul_real(PX2, torch.as_tensor(f.hx_C, device=dev))
+    X2 = xp[:, f["qm_a"]] * xp[:, f["qm_b"]]
+    PX2 = P[:, f["hx_q"]] * X2[:, f["hx_m"]]
+    hx_nz = complex_matmul_real(PX2, f["hx_C"])
     hx_padded = torch.cat([hx_nz, torch.zeros_like(hx_nz[:, :1])], dim=1)
-    hx = hx_padded[:, _idx(f.hx_scatter, dev)].reshape(x.shape[0], n, n)
+    hx = hx_padded[:, f["hx_scatter"]].reshape(x.shape[0], n, n)
 
     h = mht = None
     if need_h or need_ht:
-        X3 = (xp[:, _idx(f.cm_a, dev)] * xp[:, _idx(f.cm_b, dev)]
-              * xp[:, _idx(f.cm_c, dev)])
-        X3g = X3[:, _idx(f.ht_m, dev)]
-        htc = torch.as_tensor(f.ht_C, device=dev)
-        q = _idx(f.ht_q, dev)
+        X3 = xp[:, f["cm_a"]] * xp[:, f["cm_b"]] * xp[:, f["cm_c"]]
+        X3g = X3[:, f["ht_m"]]
+        q = f["ht_q"]
         if need_h:
-            h = complex_matmul_real(P[:, q] * X3g, htc)
+            h = complex_matmul_real(P[:, q] * X3g, f["ht_C"])
         if need_ht:
-            da = diff_params[:, _idx(f.pp_a, dev)]
-            db = diff_params[:, _idx(f.pp_b, dev)]
+            da = diff_params[:, f["pp_a"]]
+            db = diff_params[:, f["pp_b"]]
             dP = da * pb + db * pa  # product rule on the pair
-            mht = -complex_matmul_real(dP[:, q] * X3g, htc)
+            mht = -complex_matmul_real(dP[:, q] * X3g, f["ht_C"])
     return hx, h, mht

@@ -417,24 +417,35 @@ def _schedule_program(schedule: sched.SolveSchedule, pos_of_row):
 
 
 def build_pair_coefs(problem: TrifocalProblem, target_params: torch.Tensor,
-                     basis: str) -> torch.Tensor:
+                     basis: str, start_params: Optional[torch.Tensor] = None,
+                     diff_params: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Per-path pair-product coefficients, (B, P+1) complex64 target
     parameters -> (B, 3, Q) complex64, in ``HCConfig.pair_coef_basis``.
 
     "efg", the two-point basis: P_q(t) = t^2 E + t(1-t) F + (1-t)^2 G with
     E = tgt_a tgt_b, F = tgt_a s_b + s_a tgt_b, G = s_a s_b (s = the
-    problem's start parameters): exact at t = 1.
+    start parameters): exact at t = 1.
 
     "abc": P_q(t) = (A t + B) t + C with A = d_a d_b, B = s_a d_b + s_b d_a,
     C = s_a s_b, d = tgt - s (a float32 difference, as the JAX engine forms
     it).  Its rounding near t = 1 is absolute, not relative: the JAX
-    package's known floor under the imaginary residues, reproduced."""
+    package's known floor under the imaginary residues, reproduced.
+
+    s is the problem's start parameters, or with ``start_params`` (B, P+1)
+    each path's own (a monodromy leg's start, target - diff); then
+    ``diff_params`` (B, P+1), if given, is d, as the JAX package takes the
+    difference it was given."""
     f = problem.factored
     dev = target_params.device
     a = torch.as_tensor(f.pp_a, dtype=torch.long, device=dev)
     b = torch.as_tensor(f.pp_b, dtype=torch.long, device=dev)
-    sp = torch.as_tensor(problem.start_params, device=dev)
-    sa, sb = sp[a], sp[b]
+    if start_params is None:
+        sp = torch.as_tensor(problem.start_params, device=dev)
+        sa, sb = sp[a], sp[b]
+    else:
+        sp = start_params
+        sa, sb = sp[:, a], sp[:, b]
     g = torch.complex(sa.real * sb.real - sa.imag * sb.imag,
                       sa.real * sb.imag + sa.imag * sb.real)
     if basis == "efg":
@@ -446,7 +457,7 @@ def build_pair_coefs(problem: TrifocalProblem, target_params: torch.Tensor,
         f_im = ta.real * sb.imag + ta.imag * sb.real + sa.real * tb.imag \
             + sa.imag * tb.real
     elif basis == "abc":
-        d = target_params - sp
+        d = target_params - sp if diff_params is None else diff_params
         ta, tb = d[:, a], d[:, b]   # d_a, d_b
         e_re = ta.real * tb.real - ta.imag * tb.imag
         e_im = ta.real * tb.imag + ta.imag * tb.real
@@ -1079,21 +1090,27 @@ class TrackResult:
     num_steps: torch.Tensor  # (B,) int32
 
 
-def make_track_fn(problem: TrifocalProblem, cfg: HCConfig):
+def make_track_fn(problem: TrifocalProblem, cfg: HCConfig,
+                  dynamic_start: bool = False):
     """Build ``track(x0 (B, V), target_params (B, P+1)) -> TrackResult``.
 
     The whole budget (max_steps + 1 steps) runs in one call: one CUDA
     kernel launch for tensors on the card, ``track_plain`` for CPU
-    tensors.  Start parameters are the problem's."""
-    return _make_tracker(problem, cfg, plain=False)
+    tensors.  Start parameters are the problem's; with ``dynamic_start``
+    each path's are target - diff, and ``track(x0, target_params,
+    diff_params)`` needs diff_params (B, P+1) (monodromy legs)."""
+    return _make_tracker(problem, cfg, plain=False,
+                         dynamic_start=dynamic_start)
 
 
-def make_plain_track_fn(problem: TrifocalProblem, cfg: HCConfig):
+def make_plain_track_fn(problem: TrifocalProblem, cfg: HCConfig,
+                        dynamic_start: bool = False):
     """The same tracker running ``track_plain`` on any device: the
     kernel's reference on the card.  Its ``track`` takes ``work``, a dict
     in which ``track_plain`` counts the path-steps, corrector iterations,
     full solves and replays."""
-    return _make_tracker(problem, cfg, plain=True)
+    return _make_tracker(problem, cfg, plain=True,
+                         dynamic_start=dynamic_start)
 
 
 def device_constants(c: FusedConstants, plain: bool = False):
@@ -1119,7 +1136,8 @@ def device_constants(c: FusedConstants, plain: bool = False):
     return on
 
 
-def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
+def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool,
+                  dynamic_start: bool = False):
     from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
         _kernels,
     )
@@ -1129,11 +1147,25 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool):
     on = device_constants(c, plain)
 
     def track(x0: torch.Tensor, target_params: torch.Tensor,
+              diff_params: Optional[torch.Tensor] = None,
               work: Optional[dict] = None) -> TrackResult:
         if x0.device != target_params.device:
             raise ValueError("x0 and target_params must share a device")
         perm, inv, aux = on(x0.device)
-        efg = build_pair_coefs(problem, target_params, cfg.pair_coef_basis)
+        if dynamic_start:
+            if diff_params is None:
+                raise ValueError("dynamic_start needs diff_params")
+            # The start as the JAX package forms it: target - diff in
+            # complex64.
+            efg = build_pair_coefs(problem, target_params,
+                                   cfg.pair_coef_basis,
+                                   start_params=target_params - diff_params,
+                                   diff_params=diff_params)
+        elif diff_params is not None:
+            raise ValueError("diff_params is taken with dynamic_start only")
+        else:
+            efg = build_pair_coefs(problem, target_params,
+                                   cfg.pair_coef_basis)
         x = x0[:, perm].contiguous()
         fl = init_flags(cfg, x.shape[0], x.device)
         if isinstance(aux, _Tables):

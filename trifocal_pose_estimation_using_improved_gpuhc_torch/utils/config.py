@@ -144,9 +144,10 @@ _TRACKER_HC = {
 # ... and the engine's: the trackers also run truncate_paths=False.
 _ENGINE_HC = {
     "truncate_paths": (True,),
-    # The JAX package runs its full-pivot XLA oracle ("xla") or the P2C
-    # tracker ("p2c") for the other backends; the port has neither yet.
-    "backend": ("fused",),
+    # "fused": the kernel's tracker; "xla": the full-pivot oracle
+    # (ops/tracker.py).  The JAX package's P2C tracker ("p2c") is not
+    # ported yet.
+    "backend": ("fused", "xla"),
 }
 _SHIPPED_RANSAC = {"abort_by_good_sol": (False, True)}
 
@@ -215,6 +216,23 @@ def problem_config(cfg: EngineConfig) -> ProblemConfig:
     return dataclasses.replace(
         cfg.problem, **{k: v for k, v in dims.items() if k in fields}
     )
+
+
+def config_for_data_root(data_root: Optional[str] = None,
+                         problem: str = "trifocal_2op1p_30x30"
+                         ) -> EngineConfig:
+    """The command lines' configuration: the problem folder's
+    reference-format YAML when it has one, else the defaults with the
+    table dimensions of the data root's problem.json (generated tables need
+    not have the reference's term counts).  data_root None is
+    DEFAULT_DATA_ROOT."""
+    root = data_root or DEFAULT_DATA_ROOT
+    yaml_path = os.path.join(root, "problems", problem, "gpuhc_settings.yaml")
+    if os.path.exists(yaml_path):
+        return dataclasses.replace(load_problem_yaml(yaml_path),
+                                   data_root=root)
+    cfg = EngineConfig(problem=ProblemConfig(name=problem), data_root=root)
+    return dataclasses.replace(cfg, problem=problem_config(cfg))
 
 
 def load_problem_yaml(path: str) -> EngineConfig:
