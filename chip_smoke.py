@@ -81,7 +81,17 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      from the first MONO_SEEDS roots (3 loops), each root's residual at
      the start parameters recomputed in float64 numpy, and the roots
      matched to the committed ones; the module's command line in a
-     subprocess, its files read back.
+     subprocess, its files read back;
+ 13. P2C and the ablation ladder: (a) the kernel on the P2C coefficient
+     plan (ops/p2c.py, TrunPaths off, one launch) against its track_plain
+     at H=2, bit for bit; (b) the P2C rung's engine round against the PH
+     rung's (both TrunPaths off, one launch) at H=100, per-flag flips
+     gated at 3.2 % of the paths, each round's launches counted from 0;
+     (c) the CLI's --ablation --hypotheses 100 --times 2 in a subprocess,
+     its five rows parsed (track_ms, converged, found, K1 launches); (d)
+     the P2C plan's kernel alone on the round's paths (median of 3), the
+     PH plan's under the same knobs, and its plain twin, bit for bit, with
+     the work it counts for the bound.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
@@ -95,7 +105,9 @@ entry is named hc_track, phase "step", its launches_per_round the round's
 hc_track launches; the reduced entry also carries phase 11's launches:
 per collecting round, per stream view and per stream-abort chunk;
 and phase 12's: per cross-check and per monodromy leg, and the oracle
-round's track_ms beside K1's),
+round's track_ms beside K1's; and phase 13's entry of K1 on the P2C plan,
+plan "p2c": its launches in the P2C rung's round, per rung of the CLI's
+ladder, ms, the PH plan's ms under the same knobs, plain_ms and bound),
 and as the last line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
@@ -125,6 +137,8 @@ H_CROSS = 2
 ORACLE_FLIP_FRAC = 0.032   # tests/test_torch_engine.py's band
 PERTURBATIONS = 4          # 1e-7 relative nudges (tests/test_torch_tracker.py)
 MONO_SEEDS, MONO_LOOPS = 150, 3
+# Phase 13: the P2C plan's bit-for-bit check.
+H_P2C = 2
 CLI = "trifocal_pose_estimation_using_improved_gpuhc_torch.cli"
 MONODROMY = "trifocal_pose_estimation_using_improved_gpuhc_torch.models.monodromy"
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -606,6 +620,149 @@ def monodromy_checks(cfg, engine, view, _kernels) -> float:
     print(f"monodromy cli: rc 0 in {mono_cli_s:.1f} s, {mm.group(1)} roots "
           f"read back from {out_m}", flush=True)
     return launches_m / legs
+
+
+def p2c_ladder(cfg, problem, view, inputs, round_line, eng, _kernels,
+               blocks_per_sm) -> dict:
+    """Phase 13 (see the module docstring); returns the kernels line's
+    entry of K1 on the P2C plan."""
+    import shutil
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.cli import (
+        ABLATION_RUNGS,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+        fused,
+        p2c,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops.bound import (
+        tracker_bound,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
+        problem_dir,
+    )
+
+    off = dict(truncate_paths=False, compact_survivors=False)
+    hc_p = dataclasses.replace(cfg.hc, backend="p2c", **off)
+    t0 = time.perf_counter()
+    tables = p2c.derive_coeff_map(problem, problem_dir(cfg))
+    kernel = p2c.make_fused_p2c_track_fn(problem, tables, hc_p)
+    plain = p2c.make_fused_p2c_track_fn(problem, tables, hc_p, plain=True)
+    c = kernel.constants
+    print(f"p2c: {tables.n_coeffs} coefficient slots, map "
+          f"{tables.coeff_map.shape} derived in "
+          f"{time.perf_counter() - t0:.2f} s on the CPU; plan Q'={c.q}, "
+          f"{len(c.monomials())} monomials, {c.kernel_plan().size} ints, "
+          f"solver {c.solver}", flush=True)
+
+    # (a) K1 on the P2C plan against its track_plain, bit for bit.
+    x2, tgt2 = inputs(H_P2C)
+    m2 = x2.shape[0]
+    _kernels.hc_track.launches = 0
+    rk = kernel(x2, tgt2)
+    launches_a = _kernels.hc_track.launches
+    rp = plain(x2, tgt2)
+    torch.cuda.synchronize()
+    same, nf = identical(rk, rp), flips(rk, rp)
+    print(f"p2c kernel vs plain at H={H_P2C}: bit-identical paths {same}/{m2}"
+          f", flag flips {nf}, converged {int(rk.converged.sum())}, pruned "
+          f"{int(rk.pruned.sum())}, launches {launches_a}", flush=True)
+    assert launches_a == 1 and same == m2 and nf == 0, (launches_a, same, nf)
+
+    # (b) The P2C rung against the PH rung, both TrunPaths off in one launch.
+    rungs = {}
+    for name, knobs in (("p2c", dict(off, backend="p2c")), ("ph", off)):
+        e = eng.TrifocalPoseEngine(dataclasses.replace(
+            cfg, hc=dataclasses.replace(cfg.hc, **knobs)))
+        e.run_round(view, SEED, H_ROUND)  # warm-up
+        _kernels.hc_track.launches = 0
+        rr = e.run_round(view, SEED, H_ROUND)
+        launches = _kernels.hc_track.launches
+        round_line(f"{name} rung H={H_ROUND} (TrunPaths off, one launch)", rr,
+                   launches)
+        assert launches == 1, (name, launches)
+        assert not rr.pruned.any(), name
+        rungs[name] = (rr, launches)
+    a, b = rungs["p2c"][0], rungs["ph"][0]
+    n = a.converged.shape[0]
+    band = int(ORACLE_FLIP_FRAC * n)
+    per = {f: int((getattr(a, f) != getattr(b, f)).sum())
+           for f in ("converged", "inf_fail", "pruned")}
+    print(f"p2c rung vs ph rung on {n} paths: flag flips "
+          + ", ".join(f"{f} {v} ({100 * v / n:.3f} %)" for f, v in per.items())
+          + f" (band {band}); converged {a.stats.num_converged} / "
+          f"{b.stats.num_converged}; step counts differ on "
+          f"{int((a.num_steps != b.num_steps).sum())} paths; best support "
+          f"{a.best_support21}/{a.best_support31} / {b.best_support21}/"
+          f"{b.best_support31}; track_ms {a.track_ms:.3f} / {b.track_ms:.3f}",
+          flush=True)
+    assert all(v <= band for v in per.values()), per
+    assert abs(a.stats.num_converged - b.stats.num_converged) <= band
+
+    # (c) The command line's ladder in a subprocess.
+    out = os.path.join(ROOT, "build", "cli_out", "ablation")
+    shutil.rmtree(out, ignore_errors=True)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", CLI, "--ablation", "--hypotheses",
+         str(H_ROUND), "--times", "2", "--output-dir", out], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        print(f"cli ablation| {line}", flush=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    rows = re.findall(r"^(.{44}) +([0-9.]+) +(\d+) +(True|False)\n - hc_track "
+                      r"kernel launches in 2 timed rounds: (\d+) on cuda",
+                      proc.stdout, re.M)
+    assert [r[0].rstrip() for r in rows] == [r[0] for r in ABLATION_RUNGS], \
+        rows
+    ladder = [dict(rung=name.rstrip(), track_ms=float(ms), converged=int(cv),
+                   found=found == "True", launches=int(k))
+              for name, ms, cv, found, k in rows]
+    for r in ladder:
+        print(f"ladder: {r['rung']:44s} track_ms {r['track_ms']:9.1f}, "
+              f"converged {r['converged']:6d}, found {r['found']}, K1 "
+              f"launches {r['launches']} in 2 rounds", flush=True)
+        assert r["launches"] > 0, r
+    assert ladder[0]["launches"] == 2, ladder[0]
+    print(f"cli ablation: rc 0 in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+
+    # (d) K1 on the P2C plan alone on the round's paths (median of 3),
+    # beside the PH plan under the same knobs, and its plain twin, which
+    # counts the work for the bound.
+    x0, tgt = inputs(H_ROUND)
+    ph_kernel = fused.make_track_fn(problem, dataclasses.replace(
+        cfg.hc, **off))
+    runs, ph_runs = [], []
+    for _ in range(3):
+        runs.append(timed(lambda: kernel(x0, tgt)))
+        ph_runs.append(timed(lambda: ph_kernel(x0, tgt))[1])
+    ms, ph_ms = sorted(t for _, t in runs)[1], sorted(ph_runs)[1]
+    work = {}
+    rp, plain_ms = timed(lambda: plain(x0, tgt, work=work))
+    rk = runs[0][0]
+    same = identical(rk, rp)
+    abs_err, _ = x_errors(rk, rp)
+    bound_ms, bound_by = tracker_bound(c, work, n)
+    print(f"p2c kernel alone {ms:.3f} ms (median of 3; the PH plan, same "
+          f"knobs, {ph_ms:.3f} ms), plain {plain_ms:.3f} ms on {n} paths; "
+          f"bit-identical paths {same}/{n}; work {work['steps']} path-steps, "
+          f"{work['newton']} corrector iterations, {work['solves']} full "
+          f"solves; bound {bound_ms:.3f} ms ({bound_by}, "
+          f"{100 * bound_ms / ms:.3f} %)", flush=True)
+    assert same == n, same
+    return dict(program="reduced", plan="p2c", blocks_per_sm=blocks_per_sm,
+                launches=rungs["p2c"][1],
+                launches_per_rung={r["rung"]: r["launches"] / 2
+                                   for r in ladder},
+                ladder=ladder, max_abs_err=abs_err, ms=ms, ph_plan_ms=ph_ms,
+                plain_ms=plain_ms, plain_paths=n, bound_ms=bound_ms,
+                bound_by=bound_by,
+                note="K1 on the P2C coefficient plan, TrunPaths off, one "
+                     "launch (the ladder's first rung); ms and ph_plan_ms "
+                     "include the pair coefficients, plain_ms is "
+                     "track_plain on the card")
 
 
 def ransac_target(view):
@@ -1130,6 +1287,12 @@ def main() -> int:
         launches_per_monodromy_leg=monodromy_checks(cfg, engine, view,
                                                     _kernels))
     print(f"phase 12: {time.perf_counter() - t_oracle:.1f} s", flush=True)
+
+    # 13. P2C and the ablation ladder.
+    t_p2c = time.perf_counter()
+    kernels.append(p2c_ladder(cfg, problem, view, inputs, round_line, eng,
+                              _kernels, occupancy[_kernels.hc_track_label(hc)]))
+    print(f"phase 13: {time.perf_counter() - t_p2c:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         **dict(name="hc_track", route="cuda", source=SOURCE, library_ms=None,

@@ -89,7 +89,6 @@ def test_cli_writes_under_build_by_default():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ablation"], "item 7"),
     (["--devices", "2"], "item 5"),
 ])
 def test_cli_refuses_flags_not_ported(tmp_path, flags, item):

@@ -38,6 +38,10 @@ kernel equals it on track_plain (history and roots); the oracle tracker
 (ops/tracker.py) on the card agrees with itself on the CPU within the
 engine tests' band (3.2 % of flags; x within 1e-3 where both converge, on
 the paths 1e-7 nudges do not move by 1e-3).
+
+The P2C slice: the kernel on the P2C coefficient plan (ops/p2c.py) equals
+its track_plain bit for bit, TrunPaths on and off, and the P2C engine's
+round launches it once.
 """
 
 import dataclasses
@@ -56,6 +60,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.models import (
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     _kernels,
     fused,
+    p2c,
     phases,
     ransac,
     segmented,
@@ -632,3 +637,32 @@ def test_cuda_oracle_matches_the_cpu_oracle(setup):
     err = (gx[0] - c.x).abs().max(dim=1).values / c.x.abs().max(
         dim=1).values.clamp(min=1.0)
     assert float(err[both & calm].max()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("truncate", [True, False])
+def test_cuda_p2c_plan_matches_track_plain(setup, truncate):
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, truncate_paths=truncate)
+    tables = p2c.derive_coeff_map(port, config.problem_dir(cfg))
+    before = _kernels.hc_track.launches
+    k = p2c.make_fused_p2c_track_fn(port, tables, hc)(x0, tgt)
+    assert _kernels.hc_track.launches == before + 1
+    p = p2c.make_fused_p2c_track_fn(port, tables, hc, plain=True)(x0, tgt)
+    torch.cuda.synchronize()
+    assert int(k.converged.sum()) > 0
+    assert truncate or not bool(k.pruned.any())
+    _assert_same(k, p)
+
+
+@pytest.mark.gpu
+def test_cuda_p2c_round_launches_the_kernel_once(setup):
+    cfg, _, _, _ = setup
+    cfg_p = dataclasses.replace(cfg, hc=dataclasses.replace(
+        cfg.hc, backend="p2c", truncate_paths=False),
+        ransac=dataclasses.replace(cfg.ransac, abort_by_good_sol=True))
+    e = engine.TrifocalPoseEngine(cfg_p)
+    before = _kernels.hc_track.launches
+    rr = e.run_round(e.load_view(0), seed=0, num_hypotheses=_H)
+    assert _kernels.hc_track.launches == before + 1
+    assert rr.stats.num_converged > 0 and not rr.pruned.any()

@@ -23,6 +23,7 @@ _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops._kernels",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.bound",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.linalg",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.p2c",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.tracker",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.phases",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.ransac",

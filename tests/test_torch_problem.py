@@ -111,9 +111,9 @@ def test_kernel_plan_header(constants):
 @pytest.mark.parametrize("knob,value", [
     ("solver", "dense"), ("pair_coef_basis", "ab"), ("predictor", "rk5"),
     ("eval_structure", "dense"), ("predictor", "euler"),
-    ("backend", "pallas"), ("backend", "p2c"),
+    ("backend", "pallas"), ("backend", "cuda"),
     ("eval_precision", "bf16"), ("corrector_jacobian_reuse", 3),
-    ("truncate_paths", False), ("num_devices", 2), ("num_devices", 8)])
+    ("truncate_paths", None), ("num_devices", 2), ("num_devices", 8)])
 def test_non_shipped_config_rejected(cfg, knob, value):
     if knob == "num_devices":
         # The JAX engine shards over num_devices; the port does not.
@@ -135,11 +135,13 @@ def test_handoff_with_frozen_rk_stages_rejected(cfg):
 
 def test_shipped_config_accepted(cfg):
     """The defaults, one device or all visible ones (one card), the
-    schedule solve and the TrunRANSAC abort round, and the oracle
-    backend."""
+    schedule solve and the TrunRANSAC abort round, the oracle and the P2C
+    backends, and TrunPaths off."""
     config.check_shipped(cfg)
-    config.check_shipped(dataclasses.replace(
-        cfg, hc=dataclasses.replace(cfg.hc, backend="xla")))
+    for backend in ("xla", "p2c"):
+        config.check_shipped(dataclasses.replace(
+            cfg, hc=dataclasses.replace(cfg.hc, backend=backend,
+                                        truncate_paths=False)))
     for devices in (None, 1):
         config.check_shipped(dataclasses.replace(cfg, num_devices=devices))
     config.check_shipped(dataclasses.replace(

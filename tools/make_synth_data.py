@@ -3,12 +3,18 @@
 RANSAC views, in the reference data-root layout.
 
     python tools/make_synth_data.py [--out data/synth_trifocal] [--views 3]
+    python tools/make_synth_data.py --p2c-only data/synth_trifocal
 
 Writes, under ``--out``:
 
   problems/trifocal_2op1p_30x30/
       dHdx_indx.txt, dHdt_indx.txt   index tables (README "Adding a new
                                      minimal problem" encoding)
+      dHdx_indx_P2C.txt, dHdt_indx_P2C.txt
+                                     the same system over coefficients
+                                     (``p2c_tables_from_ph``; ``--p2c-only``
+                                     writes just these two from the
+                                     committed PH tables)
       start_params.txt, start_sols.txt
       problem.json                   the table dimensions both packages read
   RANSAC_Data/trifocal_2op1p_30x30/Synthetic/
@@ -448,6 +454,99 @@ def write_problem(out, hx, ht, p0, sols):
         f.write("\n")
 
 
+# ---------------------------------------------------------------------------
+# P2C coefficient tables (numpy only).
+# ---------------------------------------------------------------------------
+
+
+def _canonical(poly):
+    """A pair-product polynomial {(pa, pb): c} -> (canonical key, weight):
+    the polynomial over the gcd of its coefficients, signed so that its
+    first pair's coefficient is positive, and that gcd with the sign."""
+    pairs = sorted(poly)
+    g = int(np.gcd.reduce([abs(poly[q]) for q in pairs]))
+    w = g if poly[pairs[0]] > 0 else -g
+    return tuple((q, poly[q] // w) for q in pairs), w
+
+
+def _group(terms):
+    """Terms (c, pa, pb, v...) of one entry -> {sorted v...: {pair: c}},
+    zero sums and zero coefficients left out."""
+    groups = {}
+    for c, pa, pb, *vs in terms:
+        if c == 0:
+            continue
+        poly = groups.setdefault(tuple(sorted(vs)), {})
+        q = (min(pa, pb), max(pa, pb))
+        poly[q] = poly.get(q, 0) + int(c)
+    out = {}
+    for mono, poly in sorted(groups.items()):
+        poly = {q: c for q, c in poly.items() if c}
+        if poly:
+            out[mono] = poly
+    return out
+
+
+def p2c_tables_from_ph(hx, ht):
+    """The PH index tables -> the P2C coefficient tables.
+
+    hx (NV, Tx, 5, NV) and ht (Tt, 6, NV) are the reference encoding
+    (``build_tables``).  Each equation's H terms, and each Hx entry's terms,
+    are grouped by their x-monomial; each group's pair-product polynomial,
+    up to an integer weight, is one coefficient (indices in the sorted order
+    of the canonical polynomials), and the group becomes one term
+    [weight, coefficient, v...].  Padding terms are [0, Z, NV, ...] with Z
+    the zero-pad coefficient, the last index.  Returns (hx_p2c (NV eqs,
+    NV vars, Tx', 4), ht_p2c (NV eqs, Tt', 5)), parts innermost, the
+    layout the P2C loaders reshape."""
+    n = hx.shape[0]
+    h_groups = [_group(ht[:, :, e]) for e in range(n)]
+    x_groups = [[_group(hx[v, :, :, e]) for v in range(n)]
+                for e in range(n)]
+    keys = set()
+    for groups in h_groups + [g for row in x_groups for g in row]:
+        keys.update(_canonical(p)[0] for p in groups.values())
+    index = {k: i for i, k in enumerate(sorted(keys))}
+    zero = len(index)
+
+    def terms(groups, width):
+        rows = []
+        for mono, poly in groups.items():
+            key, w = _canonical(poly)
+            rows.append([w, index[key], *mono])
+        return rows, [0, zero] + [n] * width
+
+    tt = max(len(g) for g in h_groups)
+    tx = max(len(g) for row in x_groups for g in row)
+    ht_p2c = np.zeros((n, tt, 5), np.int64)
+    hx_p2c = np.zeros((n, n, tx, 4), np.int64)
+    for e in range(n):
+        rows, pad = terms(h_groups[e], 3)
+        ht_p2c[e] = rows + [pad] * (tt - len(rows))
+        for v in range(n):
+            rows, pad = terms(x_groups[e][v], 2)
+            hx_p2c[e, v] = rows + [pad] * (tx - len(rows))
+    return hx_p2c, ht_p2c
+
+
+def read_ph_tables(out):
+    """The committed PH tables of a data root, (hx, ht) as ``build_tables``
+    returns them."""
+    d = os.path.join(out, "problems", PROBLEM)
+    hx = np.loadtxt(os.path.join(d, "dHdx_indx.txt"), dtype=np.int64)
+    ht = np.loadtxt(os.path.join(d, "dHdt_indx.txt"), dtype=np.int64)
+    return hx.reshape(NV, -1, 5, NV), ht.reshape(-1, 6, NV)
+
+
+def write_p2c(out, hx, ht):
+    """Write dHdx_indx_P2C.txt and dHdt_indx_P2C.txt (one term per line)."""
+    hx_p2c, ht_p2c = p2c_tables_from_ph(hx, ht)
+    d = os.path.join(out, "problems", PROBLEM)
+    _write_ints(os.path.join(d, "dHdx_indx_P2C.txt"), hx_p2c.reshape(-1, 4))
+    _write_ints(os.path.join(d, "dHdt_indx_P2C.txt"), ht_p2c.reshape(-1, 5))
+    return hx_p2c, ht_p2c
+
+
 def write_views(out, views):
     d = os.path.join(out, "RANSAC_Data", PROBLEM, "Synthetic")
     for sub in ("Triplet_Edgels", "GT_Poses21", "GT_Poses31"):
@@ -478,7 +577,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max-loops", type=int, default=80)
     ap.add_argument("--patience", type=int, default=6)
+    ap.add_argument("--p2c-only", metavar="DATA_ROOT", default=None,
+                    help="only write the P2C tables of DATA_ROOT's committed "
+                         "PH tables (no sympy, no root growing)")
     args = ap.parse_args(argv)
+    if args.p2c_only:
+        hx_p2c, ht_p2c = write_p2c(args.p2c_only,
+                                   *read_ph_tables(args.p2c_only))
+        print(f"P2C tables: hx {hx_p2c.shape}, ht {ht_p2c.shape}, "
+              f"{int(hx_p2c[..., 1].max()) + 1} coefficient slots")
+        return 0
     rng = np.random.default_rng(args.seed)
 
     t0 = time.time()
@@ -520,6 +628,7 @@ def main(argv=None) -> int:
           f"{np.abs(eval_h(ht, sols, p0)).max():.2e})")
 
     write_problem(args.out, hx, ht, p0, sols)
+    write_p2c(args.out, hx, ht)
     write_views(args.out, views)
     print(f"wrote {args.out} ({time.time() - t0:.0f}s)")
     return 0

@@ -11,14 +11,17 @@ trace of the timed rounds into DIR.  ``--cross-check`` (2 hypotheses) and
 the engine and through the full-pivot oracle tracker on the CPU
 (``backend="xla"``), write ``CPU_Sols_Statistics.txt`` and
 ``CPU_Converged_HC_tracks.txt``, and exit 1 when the two disagree beyond
-the JAX package's bands.  The ablation ladder and hypothesis sharding are
-not ported yet: their flags are refused before any tracking.
+the JAX package's bands.  ``--ablation`` prints the strategy-ablation
+ladder instead of the rounds: P2C, PH, +TrunPaths, +compaction,
++TrunRANSAC, each the best track_ms of several seeds after a warm-up.
+Hypothesis sharding is not ported yet: ``--devices N`` with N > 1 is
+refused before any tracking.
 
 Usage:
   python -m trifocal_pose_estimation_using_improved_gpuhc_torch.cli \\
       [--views 1] [--hypotheses 100] [--times 1] [--platform gpu|cpu] \\
       [--stream] [--abort] [--cross-check | --cross-check-full] \\
-      [--output-dir build/cli_out]
+      [--ablation] [--output-dir build/cli_out]
 """
 
 from __future__ import annotations
@@ -28,12 +31,6 @@ import contextlib
 import dataclasses
 import os
 import sys
-
-# Flags of the JAX CLI whose paths the port does not have yet, and the
-# ROADMAP.md Queue 1 item that ports each.
-_REFUSED = {
-    "ablation": ("--ablation", "item 7 (P2C and the ablation ladder)"),
-}
 
 # The JAX package's cross-check bands (its cli.py): converged-flag
 # disagreements and converged totals within 0.5 % of the paths (floor 3),
@@ -79,7 +76,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--output-dir", default=DEFAULT_OUTPUT_DIR)
     ap.add_argument("--ablation", action="store_true",
-                    help="not ported yet (refused)")
+                    help="emit the strategy-ablation timing table "
+                         "(P2C, PH, TrunPaths, compaction, TrunRANSAC)")
     ap.add_argument("--stream", action="store_true",
                     help="streamed recovery: two views in flight on the card, "
                          "one selection read back per view")
@@ -98,11 +96,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
-    for key, (flag, item) in _REFUSED.items():
-        if getattr(args, key):
-            print(f"{flag} is not ported to the torch package yet: "
-                  f"ROADMAP.md Queue 1 {item}", file=sys.stderr)
-            return 2
     if args.devices is not None and args.devices > 1:
         print(f"--devices {args.devices} is not ported to the torch package "
               f"yet: ROADMAP.md Queue 1 item 5 (hypothesis sharding)",
@@ -143,9 +136,11 @@ def main(argv=None) -> int:
         print("no CUDA device; pass --platform cpu to run on the CPU",
               file=sys.stderr)
         return 2
-    engine = TrifocalPoseEngine(
-        cfg, device="cpu" if args.platform == "cpu" else None)
+    device = "cpu" if args.platform == "cpu" else None
     os.makedirs(args.output_dir, exist_ok=True)
+    if args.ablation:
+        return run_ablation(cfg, args, device)
+    engine = TrifocalPoseEngine(cfg, device=device)
     print(f"[torch-hc] problem: {args.problem}, "
           f"{engine.problem.num_tracks} tracks x "
           f"{args.hypotheses or cfg.ransac.num_iterations} hypotheses on "
@@ -282,6 +277,71 @@ def main(argv=None) -> int:
     if args.cross_check or args.cross_check_full:
         return run_cross_check(engine, cfg, args, view0,
                                full=args.cross_check_full)
+    return 0
+
+
+# The ablation ladder's rungs, the JAX CLI's: (name, HCConfig overrides,
+# RansacConfig overrides).
+ABLATION_RUNGS = [
+    ("P2C baseline (coefficient tables)",
+     dict(backend="p2c", truncate_paths=False, compact_survivors=False),
+     dict()),
+    ("PH (direct parameter homotopy)",
+     dict(backend="fused", truncate_paths=False, compact_survivors=False),
+     dict()),
+    ("PH + TrunPaths (depth pruning)",
+     dict(backend="fused", truncate_paths=True, compact_survivors=False),
+     dict()),
+    ("PH + TrunPaths + compaction (production)",
+     dict(backend="fused", truncate_paths=True, compact_survivors=True),
+     dict()),
+    ("PH + TrunPaths + compaction + TrunRANSAC",
+     dict(backend="fused", truncate_paths=True, compact_survivors=True),
+     dict(abort_by_good_sol=True)),
+]
+
+
+def run_ablation(cfg, args, device=None) -> int:
+    """The incremental-strategy ladder in one invocation, as the JAX CLI's
+    ``run_ablation`` prints it: each rung a configuration of the one
+    tracker kernel, warmed up on seed 0, then the best track_ms (the
+    tracking span) of max(2, --times) seeds with that round's converged
+    count and found flag; the last rung times to the accepted pose.  After
+    each row, the kernel's launches in the rung's timed rounds (0 on the
+    CPU, where the plain twin tracks)."""
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.engine import (
+        TrifocalPoseEngine,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+        _kernels,
+    )
+
+    H = args.hypotheses or cfg.ransac.num_iterations
+    seeds = max(2, args.times)
+    print(f"## Strategy ablation: view {args.start_view}, {H} hypotheses "
+          f"x {cfg.problem.num_tracks} paths "
+          f"(last row times to the accepted pose)")
+    print(f"{'variant':44s} {'best ms':>9} {'conv':>6} {'found':>6}")
+    for name, hc_over, rc_over in ABLATION_RUNGS:
+        vcfg = dataclasses.replace(
+            cfg,
+            hc=dataclasses.replace(cfg.hc, **hc_over),
+            ransac=dataclasses.replace(cfg.ransac, **rc_over),
+        )
+        eng = TrifocalPoseEngine(vcfg, device=device)
+        view = eng.load_view(args.start_view)
+        eng.run_round(view, seed=0, num_hypotheses=H)  # warm-up
+        _kernels.hc_track.launches = 0
+        best, conv, found = 1e30, 0, False
+        for seed in range(seeds):
+            rr = eng.run_round(view, seed=seed, num_hypotheses=H)
+            if rr.track_ms < best:
+                best, conv, found = (rr.track_ms, rr.stats.num_converged,
+                                     rr.found_pose)
+        print(f"{name:44s} {best:9.1f} {conv:6d} {str(found):>6}",
+              flush=True)
+        print(f" - hc_track kernel launches in {seeds} timed rounds: "
+              f"{_kernels.hc_track.launches} on {eng.device}", flush=True)
     return 0
 
 

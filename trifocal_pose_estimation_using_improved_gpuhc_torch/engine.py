@@ -7,10 +7,12 @@ pose and measure its residuals against ground truth.  The tracker is the
 JAX engine's choice: for ``backend="fused"`` the segmented one
 (``ops/segmented.py``) when survivor compaction or the TrunRANSAC abort is
 on, else one call over the whole budget (``ops/fused.py``); for
-``backend="xla"`` the full-pivot oracle (``ops/tracker.py``) in one call.
-With ``abort_by_good_sol`` the kernel's round tracks the hypotheses in
-chunks and stops at the first chunk that finds a pose; the oracle's round,
-as in the JAX engine, tracks them all.
+``backend="xla"`` the full-pivot oracle (``ops/tracker.py``) in one call;
+for ``backend="p2c"`` the kernel on the P2C coefficient plan
+(``ops/p2c.py``, its coefficient map derived once, at construction) in one
+call.  With ``abort_by_good_sol`` the segmented round tracks the
+hypotheses in chunks and stops at the first chunk that finds a pose; the
+oracle's and the P2C rounds, as in the JAX engine, track them all.
 Every round scores its candidates as the JAX engine's ``_score_round``
 does; ``run_round(..., collect_solutions=True)`` also returns every path's
 solution, the candidates' fundamental matrices and the residuals' minima
@@ -47,6 +49,7 @@ import torch
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     fused,
+    p2c,
     ransac,
     segmented,
     tracker,
@@ -56,6 +59,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import evaluation
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     EngineConfig,
     check_shipped,
+    problem_dir,
     ransac_data_dir,
 )
 
@@ -139,18 +143,23 @@ class TrifocalPoseEngine:
         self.cfg = cfg
         self.device = torch.device(device)
         self.problem = trifocal.TrifocalProblem.load(cfg)
-        oracle = cfg.hc.backend == "xla"
-        # The abort needs the segmented tracker: the oracle's round, as the
-        # JAX engine's, runs every hypothesis.
-        self._abort = cfg.ransac.abort_by_good_sol and not oracle
-        self._segmented = track_fn is None and not oracle and (
+        backend = cfg.hc.backend
+        # The abort needs the segmented tracker: the oracle's and the P2C
+        # tracker's rounds, as the JAX engine's, run every hypothesis in
+        # one call.
+        self._abort = cfg.ransac.abort_by_good_sol and backend == "fused"
+        self._segmented = track_fn is None and backend == "fused" and (
             cfg.hc.compact_survivors or self._abort)
         if track_fn is not None and self._abort:
             raise ValueError("the abort round runs the segmented tracker")
         if track_fn is not None:
             self.track = track_fn
-        elif oracle:
+        elif backend == "xla":
             self.track = tracker.make_track_fn(self.problem, cfg.hc)
+        elif backend == "p2c":
+            tables = p2c.derive_coeff_map(self.problem, problem_dir(cfg))
+            self.track = p2c.make_fused_p2c_track_fn(self.problem, tables,
+                                                     cfg.hc)
         elif self._segmented:
             self.track = segmented.make_segmented_track_fn(
                 self.problem, cfg.hc, cfg.ransac)

@@ -1091,26 +1091,34 @@ class TrackResult:
 
 
 def make_track_fn(problem: TrifocalProblem, cfg: HCConfig,
-                  dynamic_start: bool = False):
+                  dynamic_start: bool = False, coef_builder=None):
     """Build ``track(x0 (B, V), target_params (B, P+1)) -> TrackResult``.
 
     The whole budget (max_steps + 1 steps) runs in one call: one CUDA
     kernel launch for tensors on the card, ``track_plain`` for CPU
     tensors.  Start parameters are the problem's; with ``dynamic_start``
     each path's are target - diff, and ``track(x0, target_params,
-    diff_params)`` needs diff_params (B, P+1) (monodromy legs)."""
+    diff_params)`` needs diff_params (B, P+1) (monodromy legs).
+
+    ``coef_builder``, if given, makes the per-path pair coefficients in
+    place of ``build_pair_coefs``: ``coef_builder(target_params) -> (B, 3,
+    Q)`` complex64 with the problem's Q pairs (the P2C tracker's, whose
+    problem lives in coefficient space while its targets are ordinary
+    parameters; ``ops/p2c.py``).  Not with ``dynamic_start``."""
     return _make_tracker(problem, cfg, plain=False,
-                         dynamic_start=dynamic_start)
+                         dynamic_start=dynamic_start,
+                         coef_builder=coef_builder)
 
 
 def make_plain_track_fn(problem: TrifocalProblem, cfg: HCConfig,
-                        dynamic_start: bool = False):
+                        dynamic_start: bool = False, coef_builder=None):
     """The same tracker running ``track_plain`` on any device: the
     kernel's reference on the card.  Its ``track`` takes ``work``, a dict
     in which ``track_plain`` counts the path-steps, corrector iterations,
     full solves and replays."""
     return _make_tracker(problem, cfg, plain=True,
-                         dynamic_start=dynamic_start)
+                         dynamic_start=dynamic_start,
+                         coef_builder=coef_builder)
 
 
 def device_constants(c: FusedConstants, plain: bool = False):
@@ -1137,11 +1145,13 @@ def device_constants(c: FusedConstants, plain: bool = False):
 
 
 def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool,
-                  dynamic_start: bool = False):
+                  dynamic_start: bool = False, coef_builder=None):
     from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
         _kernels,
     )
 
+    if dynamic_start and coef_builder is not None:
+        raise ValueError("coef_builder is not taken with dynamic_start")
     c = FusedConstants.build(problem, solver=solver_of(cfg))
     check_variant(cfg, c)
     on = device_constants(c, plain)
@@ -1163,6 +1173,11 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool,
                                    diff_params=diff_params)
         elif diff_params is not None:
             raise ValueError("diff_params is taken with dynamic_start only")
+        elif coef_builder is not None:
+            efg = coef_builder(target_params)
+            if tuple(efg.shape) != (x0.shape[0], 3, c.q):
+                raise ValueError(f"coef_builder gave {tuple(efg.shape)}, the "
+                                 f"plan takes ({x0.shape[0]}, 3, {c.q})")
         else:
             efg = build_pair_coefs(problem, target_params,
                                    cfg.pair_coef_basis)

@@ -68,7 +68,7 @@ class HCConfig:
     eval_precision: str = "split3k"     # the TPU's bf16-split matmul mode
     pair_coef_basis: str = "efg"        # "efg" | "abc"
     eval_structure: str = "classic"     # "classic" | "gathered" | "merged"
-    backend: str = "fused"              # "fused" | "xla"
+    backend: str = "fused"              # "fused" | "xla" | "p2c"
     # The 30x30 solve: "reduced" = the condensed group elimination
     # (ops/reduce.py), "schedule" = the 30-step static schedule
     # (ops/schedule.py); same pivots, different programs.
@@ -141,13 +141,14 @@ _TRACKER_HC = {
     # the RK stages with 2-term splits (about 16 significant bits).
     "eval_precision": ("split3k", "split3", "highest", "split3_rk2"),
 }
-# ... and the engine's: the trackers also run truncate_paths=False.
+# ... and the engine's.
 _ENGINE_HC = {
-    "truncate_paths": (True,),
+    # False: TrunPaths off (the ablation ladder's first two rungs).
+    "truncate_paths": (True, False),
     # "fused": the kernel's tracker; "xla": the full-pivot oracle
-    # (ops/tracker.py).  The JAX package's P2C tracker ("p2c") is not
-    # ported yet.
-    "backend": ("fused", "xla"),
+    # (ops/tracker.py); "p2c": the kernel on the P2C coefficient plan
+    # (ops/p2c.py).
+    "backend": ("fused", "xla", "p2c"),
 }
 _SHIPPED_RANSAC = {"abort_by_good_sol": (False, True)}
 
@@ -183,8 +184,9 @@ def check_hc(hc: HCConfig) -> None:
 
 def check_shipped(cfg: EngineConfig) -> None:
     """Raise ValueError unless the engine runs this configuration as the
-    JAX package does: ``check_hc``, and the engine's own knobs
-    (``num_devices`` None or 1: sharding is not ported)."""
+    JAX package does: ``check_hc``, and the engine's own knobs (backend
+    "fused", "xla" or "p2c", TrunPaths on or off, the abort on or off, and
+    ``num_devices`` None or 1: sharding is not ported)."""
     check_hc(cfg.hc)
     _check_values("hc", cfg.hc, _ENGINE_HC)
     _check_values("ransac", cfg.ransac, _SHIPPED_RANSAC)
