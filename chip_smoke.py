@@ -91,7 +91,26 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      its five rows parsed (track_ms, converged, found, K1 launches); (d)
      the P2C plan's kernel alone on the round's paths (median of 3), the
      PH plan's under the same knobs, and its plain twin, bit for bit, with
-     the work it counts for the bound.
+     the work it counts for the bound;
+ 14. hypothesis sharding (parallel/mesh.py) on the one card, the shards
+     sharing cuda:0, each on its own stream: (a) the engine's sharded
+     default round (num_devices k = 2, 4 and (b) 3, whose H = 100 pads to
+     102, over ["cuda:0"] * k) against phase 4's on the real paths, flags
+     and steps bit for bit and x bit for bit through a collecting round
+     of both, with its launches, track_ms and total_ms; the sharded
+     tracker alone on the round's (padded) inputs, bit for bit with one
+     launch, median of 3, with each shard's launches; (c) the sharded
+     abort round (k = 2, abort_chunk=12) beside phase 7's: chunks run, the
+     pose, time to pose, launches; (d) the cross-shard abort on the card:
+     shard 0 of 4 gets a hypothesis that targets the start parameters
+     (pass ratio 0, imaginary tolerance 1e9, TrunPaths off), whose hit
+     must stop the other shards before their budget; (e) both streams
+     over two shards against phase 11's, per view, with views/s and
+     latency beside phase 11's; (f) two processes in a gloo group over
+     tcp://127.0.0.1, each one shard on cuda:0 (this script with
+     --shard-worker RANK PORT): each rank's block of H=8 hypotheses bit
+     for bit with the unsharded launch's slice, and a hit on rank 1 that
+     stops rank 0.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
@@ -107,7 +126,9 @@ per collecting round, per stream view and per stream-abort chunk;
 and phase 12's: per cross-check and per monodromy leg, and the oracle
 round's track_ms beside K1's; and phase 13's entry of K1 on the P2C plan,
 plan "p2c": its launches in the P2C rung's round, per rung of the CLI's
-ladder, ms, the PH plan's ms under the same knobs, plain_ms and bound),
+ladder, ms, the PH plan's ms under the same knobs, plain_ms and bound;
+the reduced entry also carries phase 14's launches and times per sharded
+round, per shard, of the sharded tracker alone, of the streams and of the two processes),
 and as the last line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
@@ -139,6 +160,12 @@ PERTURBATIONS = 4          # 1e-7 relative nudges (tests/test_torch_tracker.py)
 MONO_SEEDS, MONO_LOOPS = 150, 3
 # Phase 13: the P2C plan's bit-for-bit check.
 H_P2C = 2
+# Phase 14: shards sharing the one card (3 pads H=100 to 102), the
+# two-process run's hypotheses and its worker's command-line flag.
+DEVICE = "cuda:0"
+SHARDS = (2, 3, 4)
+H_WORKER = 8
+WORKER_FLAG = "--shard-worker"
 CLI = "trifocal_pose_estimation_using_improved_gpuhc_torch.cli"
 MONODROMY = "trifocal_pose_estimation_using_improved_gpuhc_torch.models.monodromy"
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -227,9 +254,10 @@ def ptxas_lines(log):
     return out
 
 
-def serving(cfg, engine, view, rr, round_line, eng, _kernels) -> dict:
+def serving(cfg, engine, view, rr, round_line, eng, _kernels):
     """Phase 11 (see the module docstring); returns the launch counts for
-    the reduced entry of the kernels line."""
+    the reduced entry of the kernels line, and the streams' (results,
+    views/s) for phase 14."""
     import shutil
 
     import numpy as np
@@ -291,11 +319,11 @@ def serving(cfg, engine, view, rr, round_line, eng, _kernels) -> dict:
               f"(1000 / mean total_ms "
               f"{1000 / (sum(r.total_ms for r in seq) / len(seq)):.3f})",
               flush=True)
-        return seq, results, launches
+        return seq, results, launches, vps
 
     # (b) The stream, against run_round per view.
     engine.warmup(H_ROUND)
-    seq, results, launches_s = stream_phase(
+    seq, results, launches_s, vps_s = stream_phase(
         "run_stream", engine, lambda v: engine.run_round(v, SEED, H_ROUND))
     for vi, r, q in zip(STREAM_VIEWS, results, seq):
         got = (*dataclasses.astuple(r.stats)[:3], r.num_candidates,
@@ -314,7 +342,7 @@ def serving(cfg, engine, view, rr, round_line, eng, _kernels) -> dict:
         stream_abort_chunk=STREAM_CHUNK))
     engine_sa = eng.TrifocalPoseEngine(cfg_sa)
     engine_sa.warmup(H_ROUND)
-    seq_a, results_a, launches_a = stream_phase(
+    seq_a, results_a, launches_a, vps_a = stream_phase(
         f"stream-abort (chunk {STREAM_CHUNK})", engine_sa,
         lambda v: engine_sa.run_round(v, SEED, H_ROUND))
     for vi, r, q in zip(STREAM_VIEWS, results_a, seq_a):
@@ -362,7 +390,8 @@ def serving(cfg, engine, view, rr, round_line, eng, _kernels) -> dict:
                 launches_stream=launches_s,
                 launches_per_stream_view=launches_s / len(STREAM_VIEWS),
                 launches_stream_abort=launches_a,
-                launches_per_abort_chunk=launches_a / chunks)
+                launches_per_abort_chunk=launches_a / chunks), dict(
+        plain=(results, vps_s), abort=(results_a, vps_a))
 
 
 def h_residual(problem, x, p):
@@ -763,6 +792,291 @@ def p2c_ladder(cfg, problem, view, inputs, round_line, eng, _kernels,
                      "launch (the ladder's first rung); ms and ph_plan_ms "
                      "include the pair coefficients, plain_ms is "
                      "track_plain on the card")
+
+
+def sharding(cfg, engine, view, rr, ra, streams, inputs, round_line, eng,
+             _kernels) -> dict:
+    """Phase 14 (see the module docstring); returns the numbers for the
+    reduced entry of the kernels line."""
+    import socket
+
+    import numpy as np
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.parallel import (
+        mesh as pmesh,
+    )
+
+    problem, hc = engine.problem, cfg.hc
+    T = problem.num_tracks
+    n = H_ROUND * T
+    out = {}
+
+    def same_flags(label, r, ref, paths):
+        for f in ("converged", "inf_fail", "pruned", "num_steps"):
+            got, want = getattr(r, f)[:paths], getattr(ref, f)[:paths]
+            assert (got == want).all(), (label, f)
+
+    def sharded_engine(k, c=cfg):
+        e = eng.TrifocalPoseEngine(dataclasses.replace(c, num_devices=k),
+                                   device=[DEVICE] * k)
+        assert e.mesh == [torch.device(DEVICE)] * k, e.mesh
+        return e
+
+    def counted(fn):
+        _kernels.hc_track.launches = 0
+        res = fn()
+        return res, _kernels.hc_track.launches
+
+    # (a) Sharded default rounds, each against phase 4's round path for
+    # path (x from a collecting round of both), and the sharded tracker
+    # alone against one launch on the round's inputs,
+    # padded to whole shards; (b) is k = 3, whose H = 100 pads to 102.
+    ref_x = engine.run_round(view, SEED, H_ROUND,
+                             collect_solutions=True).solutions.x
+    for k in SHARDS:
+        hp = -(-H_ROUND // k) * k
+        x0, tgt = inputs(hp)
+        one = fused.make_track_fn(problem, hc)(x0, tgt)
+        e = sharded_engine(k)
+        e.run_round(view, SEED, H_ROUND)  # warm-up
+        r, launches = counted(lambda: e.run_round(view, SEED, H_ROUND))
+        round_line(f"sharded round k={k} on {DEVICE} (segmented, "
+                   f"compaction; H={H_ROUND} padded to {hp})", r, launches)
+        assert r.stats.num_paths == n
+        same_flags(f"k={k}", r, rr, n)
+        rx = e.run_round(view, SEED, H_ROUND, collect_solutions=True)
+        assert np.array_equal(rx.solutions.x.view(np.int32),
+                              ref_x.view(np.int32)), k
+        track = pmesh.make_sharded_track_fn(problem, hc, [DEVICE] * k)
+        times = []
+        for _ in range(3):
+            run = track.begin(x0, tgt)
+
+            def drive():
+                run.advance()
+                while run.keep():
+                    run.advance()
+                return run.result()
+
+            res, t = timed(drive)
+            assert identical(res.track, one) == hp * T and flips(
+                res.track, one) == 0, k
+            per_shard = [s.launches for s in run.runs]
+            assert all(per_shard), (k, per_shard)
+            times.append(t)
+        med = sorted(times)[1]
+        print(f"sharded round k={k}: flags, steps and x bit for bit with "
+              f"phase 4's round on all {n} real paths; track_ms "
+              f"{r.track_ms:.3f} (phase 4: {rr.track_ms:.3f}), total_ms "
+              f"{r.total_ms:.3f} (phase 4: {rr.total_ms:.3f}), launches "
+              f"{launches}; tracker alone on {hp * T} paths, bit for bit "
+              f"with one launch, median of 3: {med:.3f} ms, launches per "
+              f"shard {per_shard}", flush=True)
+        out[f"sharded_k{k}"] = dict(
+            launches_per_round=launches, track_ms=r.track_ms,
+            total_ms=r.total_ms, launches_per_shard=per_shard,
+            ms_tracker=med)
+
+    # (c) The sharded abort round beside phase 7's.
+    cfg_a = dataclasses.replace(cfg, ransac=dataclasses.replace(
+        cfg.ransac, abort_by_good_sol=True, abort_chunk=ABORT_CHUNK))
+    ea = sharded_engine(2, cfg_a)
+    ea.run_round(view, SEED, H_ROUND)  # warm-up
+    rab, launches_a = counted(lambda: ea.run_round(view, SEED, H_ROUND))
+    print(f"sharded abort round k=2, chunk {ABORT_CHUNK}: chunks run "
+          f"{rab.chunks_run} (phase 7: {ra.chunks_run}), found_pose "
+          f"{rab.found_pose}, best support {rab.best_support21}/"
+          f"{rab.best_support31}, launches {launches_a}, time to pose "
+          f"{rab.track_ms:.3f} ms (phase 7: {ra.track_ms:.3f}), total_ms "
+          f"{rab.total_ms:.3f}", flush=True)
+    assert rab.found_pose and rab.pose_errors.within(cfg.ransac)
+    assert rab.chunks_run == ra.chunks_run and launches_a > 0
+    out["sharded_abort_k2"] = dict(launches_per_round=launches_a,
+                                   time_to_pose_ms=rab.track_ms,
+                                   chunks_run=rab.chunks_run)
+
+    # (d) The cross-shard abort on the card: shard 0's hypothesis targets
+    # the start parameters; its hit must stop the other shards.
+    k = max(SHARDS)
+    xd, td = inputs(k)
+    td[:T] = torch.as_tensor(problem.start_params, device=td.device)
+    hc_d = dataclasses.replace(hc, segment_steps=2, init_delta_t=0.5,
+                               truncate_paths=False)
+    rc_d = dataclasses.replace(cfg.ransac, abort_by_good_sol=True,
+                               pass_inlier_support_ratio=0.0,
+                               imag_part_tol=1e9)
+    edgels = torch.as_tensor(view.edge_locations[:64], device=td.device)
+    track_d = pmesh.make_sharded_track_fn(problem, hc_d, [DEVICE] * k,
+                                          ransac_cfg=rc_d)
+    rd, launches_d = counted(lambda: track_d(
+        xd, td, edgels, torch.eye(3, device=td.device), 64))
+    others = rd.track.num_steps[T:]
+    print(f"cross-shard abort k={k}: found {rd.found}, found_path "
+          f"{rd.found_path} (shard 0 holds 0..{T - 1}), other shards' "
+          f"steps at most {int(others.max())} of {hc_d.max_steps + 1}, "
+          f"converged {int(rd.track.converged[T:].sum())}, launches "
+          f"{launches_d}", flush=True)
+    assert rd.found and 0 <= rd.found_path < T, rd.found_path
+    assert int(others.max()) < hc_d.max_steps
+    assert not bool(rd.track.converged[T:].any())
+
+    # (e) Both streams over two shards, against phase 11's streams.
+    def stream(label, e, ref):
+        e.warmup(H_ROUND)
+        (res, vps), launches = counted(
+            lambda: e.run_stream(STREAM_VIEWS, H_ROUND, SEED))
+        ref_res, ref_vps = ref
+        for vi, a, b in zip(STREAM_VIEWS, res, ref_res):
+            got = (*dataclasses.astuple(a.stats)[:3], a.num_candidates,
+                   a.best_support21, a.best_support31, a.found_pose,
+                   a.chunks_run)
+            want = (*dataclasses.astuple(b.stats)[:3], b.num_candidates,
+                    b.best_support21, b.best_support31, b.found_pose,
+                    b.chunks_run)
+            assert got == want, (label, vi, got, want)
+        lat = [r.track_ms for r in res]
+        ref_lat = [r.track_ms for r in ref_res]
+        print(f"sharded {label} k=2 over {len(STREAM_VIEWS)} views: every "
+              f"view's counts, supports and chunks equal phase 11's; "
+              f"{vps:.3f} views/s (phase 11: {ref_vps:.3f}), latency mean "
+              f"{sum(lat) / len(lat):.3f} ms (phase 11: "
+              f"{sum(ref_lat) / len(ref_lat):.3f}), launches {launches}",
+              flush=True)
+        assert launches > 0
+        return dict(views_per_s=vps, latency_ms=sum(lat) / len(lat),
+                    launches=launches)
+
+    out["sharded_stream_k2"] = stream("run_stream", sharded_engine(2),
+                                      streams["plain"])
+    cfg_sa = dataclasses.replace(cfg, ransac=dataclasses.replace(
+        cfg.ransac, abort_by_good_sol=True, abort_chunk=STREAM_CHUNK,
+        stream_abort_chunk=STREAM_CHUNK))
+    out["sharded_stream_abort_k2"] = stream(
+        f"stream-abort (chunk {STREAM_CHUNK})", sharded_engine(2, cfg_sa),
+        streams["abort"])
+
+    # (f) Two processes on the one card, gloo on the host.
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"), WORKER_FLAG,
+         str(rank), str(port)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines():
+            print(f"rank {rank}| {line}", flush=True)
+        assert p.returncode == 0, f"rank {rank} exited {p.returncode}"
+        reports.append(json.loads(text.strip().splitlines()[-1]))
+    r0, r1 = reports
+    for r in reports:
+        assert r["identical"] == r["paths"] and r["launches"] > 0, r
+        lo, hi = r["rank1_block"]
+        assert r["found"] and lo <= r["found_path"] < hi, r
+    assert r0["own_converged"] == 0 and r0["own_max_steps"] < r0["budget"], r0
+    print(f"two processes (gloo, one shard each on {DEVICE}): each rank's "
+          f"{r0['paths']} paths bit for bit with the unsharded launch's "
+          f"slice ({r0['launches']} and {r1['launches']} launches); rank 1's "
+          f"hit reached rank 0 (found_path {r0['found_path']}, rank 0 "
+          f"stopped at {r0['own_max_steps']} of {r0['budget'] + 1} steps)",
+          flush=True)
+    out["two_processes"] = dict(launches=[r0["launches"], r1["launches"]])
+    return out
+
+
+def shard_worker(rank: int, port: int) -> int:
+    """Phase 14 (f)'s rank: one shard on the card in a gloo group of two
+    processes.  Prints one JSON line: its block of H_WORKER hypotheses
+    against the unsharded launch's slice, and the abort raised on rank 1."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.models import (
+        trifocal,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
+        _kernels,
+        fused,
+        ransac,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.parallel import (
+        mesh as pmesh,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        data_io,
+    )
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
+        EngineConfig,
+        ransac_data_dir,
+    )
+
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        cfg = EngineConfig(data_root=os.path.join(ROOT, "data",
+                                                  "synth_trifocal"))
+        problem = trifocal.TrifocalProblem.load(cfg)
+        view = data_io.load_ransac_view(ransac_data_dir(cfg), VIEW)
+        T = problem.num_tracks
+        s = ransac.sample_edgel_triplets(SEED, view.edge_locations.shape[0],
+                                         H_WORKER)
+        tgt = torch.as_tensor(np.repeat(ransac.build_target_params(
+            view.edge_locations, view.edge_tangents, s), T, axis=0),
+            device=DEVICE)
+        x0 = torch.as_tensor(problem.start_sols, device=DEVICE).repeat(
+            H_WORKER, 1)
+        B = H_WORKER * T // 2
+        lo, hi = rank * B, (rank + 1) * B
+        mesh = pmesh.make_mesh(devices=[DEVICE])
+        one = fused.make_track_fn(problem, cfg.hc)(x0, tgt)
+        _kernels.hc_track.launches = 0
+        local = pmesh.make_sharded_track_fn(
+            problem, cfg.hc, mesh, group=dist.group.WORLD)(x0[lo:hi],
+                                                           tgt[lo:hi])
+        launches = _kernels.hc_track.launches
+        sliced = fused.TrackResult(**{
+            f.name: getattr(one, f.name)[lo:hi]
+            for f in dataclasses.fields(one)})
+        same = identical(local.track, sliced) if flips(local.track,
+                                                       sliced) == 0 else 0
+
+        # The abort: rank 1's first hypothesis targets the start parameters.
+        hc = dataclasses.replace(cfg.hc, segment_steps=2, init_delta_t=0.5,
+                                 truncate_paths=False)
+        rc = dataclasses.replace(cfg.ransac, abort_by_good_sol=True,
+                                 pass_inlier_support_ratio=0.0,
+                                 imag_part_tol=1e9)
+        ta = tgt.clone()
+        ta[B:B + T] = torch.as_tensor(problem.start_params, device=DEVICE)
+        res = pmesh.make_sharded_track_fn(
+            problem, hc, mesh, ransac_cfg=rc, group=dist.group.WORLD)(
+                x0[lo:hi], ta[lo:hi],
+                torch.as_tensor(view.edge_locations[:64], device=DEVICE),
+                torch.eye(3, device=DEVICE), 64)
+        print(json.dumps(dict(
+            rank=rank, paths=B, identical=same, launches=launches,
+            found=res.found, found_path=res.found_path, rank1_block=[B, 2 * B],
+            budget=hc.max_steps,
+            own_converged=int(res.track.converged.sum()),
+            own_max_steps=int(res.track.num_steps.max()))), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
 
 
 def ransac_target(view):
@@ -1274,7 +1588,7 @@ def main() -> int:
 
     # 11. The serving surface.
     t_serve = time.perf_counter()
-    serve = serving(cfg, engine, view, rr, round_line, eng, _kernels)
+    serve, streams = serving(cfg, engine, view, rr, round_line, eng, _kernels)
     k_reduced.update(serve)
     print(f"phase 11: {time.perf_counter() - t_serve:.1f} s", flush=True)
 
@@ -1293,6 +1607,12 @@ def main() -> int:
     kernels.append(p2c_ladder(cfg, problem, view, inputs, round_line, eng,
                               _kernels, occupancy[_kernels.hc_track_label(hc)]))
     print(f"phase 13: {time.perf_counter() - t_p2c:.1f} s", flush=True)
+
+    # 14. Hypothesis sharding on the one card.
+    t_shard = time.perf_counter()
+    k_reduced.update(sharding(cfg, engine, view, rr, ra, streams, inputs,
+                              round_line, eng, _kernels))
+    print(f"phase 14: {time.perf_counter() - t_shard:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         **dict(name="hc_track", route="cuda", source=SOURCE, library_ms=None,
@@ -1305,4 +1625,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [WORKER_FLAG]:
+        sys.exit(shard_worker(int(sys.argv[2]), int(sys.argv[3])))
     sys.exit(main())

@@ -3,8 +3,9 @@ trifocal_pose_estimation_using_improved_gpuhc_torch.cli``) on the CPU, in
 subprocesses: one round at one hypothesis writes the reference's four
 output files and loads no jax module; its default output directory lies
 under build/; without a card and without ``--platform cpu`` it exits
-nonzero; the flags of paths not ported yet
-are refused before any tracking.
+nonzero; ``--ablation`` with ``--devices 2`` is refused before any
+tracking; ``--devices 2 --platform cpu`` runs over two CPU shards
+(in-process, with a 2-step budget).
 
 The cross-check (``--cross-check``) runs in-process at one hypothesis on
 the CPU, with the engine's rounds recorded: it writes the oracle's two
@@ -12,6 +13,7 @@ files, and its printed disagreement count, totals, supports and exit code
 are the JAX CLI's rule applied to the two rounds it ran, with the JAX
 CLI's band constants."""
 
+import dataclasses
 import json
 import os
 import re
@@ -88,18 +90,59 @@ def test_cli_writes_under_build_by_default():
     assert "Output_Write_Files" not in out
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--devices", "2"], "item 5"),
+@pytest.mark.parametrize("flags,reason", [
+    (["--ablation", "--devices", "2"], "its P2C rung runs on one device"),
 ])
-def test_cli_refuses_flags_not_ported(tmp_path, flags, item):
+def test_cli_refuses_flags_not_ported(tmp_path, flags, reason):
     """Refused before the engine is built: no output directory, no round
-    line, and the message names the ROADMAP.md Queue 1 item."""
+    line, and the message says why (the ladder's P2C rung does not shard:
+    the JAX engine would track it with its oracle)."""
     out = tmp_path / "out"
     proc = _cli(["--platform", "cpu", "--hypotheses", "1", "--output-dir",
                  str(out)] + flags, timeout=120)
     assert proc.returncode != 0
-    assert f"ROADMAP.md Queue 1 {item}" in proc.stderr
+    assert reason in proc.stderr
     assert "round" not in proc.stdout and not out.exists()
+
+
+def test_cli_shards_over_cpu_devices(tmp_path, monkeypatch, capsys,
+                                     _few_threads):
+    """--devices 2 --platform cpu: one engine over two CPU shards, whose
+    header says "over 2 devices", and whose rounds write the four files;
+    in-process at one hypothesis (padded to two) with a 2-step budget."""
+    from trifocal_pose_estimation_using_improved_gpuhc_torch import cli, engine
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        config,
+    )
+
+    load = config.config_for_data_root
+
+    def short(*a):
+        cfg = load(*a)
+        return dataclasses.replace(cfg, hc=dataclasses.replace(
+            cfg.hc, max_steps=1, segment_steps=1))
+
+    monkeypatch.setattr(config, "config_for_data_root", short)
+    meshes = []
+    init = engine.TrifocalPoseEngine.__init__
+
+    def recorded(self, *a, **k):
+        init(self, *a, **k)
+        meshes.append(self.mesh)
+
+    monkeypatch.setattr(engine.TrifocalPoseEngine, "__init__", recorded)
+    out = tmp_path / "out"
+    rc = cli.main(["--platform", "cpu", "--hypotheses", "1", "--devices",
+                   "2", "--output-dir", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0
+    assert meshes == [[torch.device("cpu")] * 2]
+    assert text.splitlines()[0].endswith(" over 2 devices"), text
+    assert any(ln.startswith("view 000 round 0: track")
+               for ln in text.splitlines())
+    assert sorted(p.name for p in out.iterdir()) == [
+        "GPUHC_Steps_of_Actual_Solutions.txt", "GPU_Converged_HC_tracks.txt",
+        "GPU_Sols_Statistics.txt", "GPU_Timings.txt"]
 
 
 @pytest.fixture

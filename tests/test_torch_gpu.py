@@ -42,6 +42,12 @@ the paths 1e-7 nudges do not move by 1e-3).
 The P2C slice: the kernel on the P2C coefficient plan (ops/p2c.py) equals
 its track_plain bit for bit, TrunPaths on and off, and the P2C engine's
 round launches it once.
+
+Hypothesis sharding on the one card (``["cuda:0"] * 2``, each shard on its
+own stream): the sharded segmented and one-call trackers equal one launch
+bit for bit, shard 0's abort stops shard 1, and
+the sharded engine round (H = 3, padded to 4) equals the unsharded round
+on the real paths.
 """
 
 import dataclasses
@@ -65,6 +71,9 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     ransac,
     segmented,
     tracker,
+)
+from trifocal_pose_estimation_using_improved_gpuhc_torch.parallel import (
+    mesh as pmesh,
 )
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
     config,
@@ -666,3 +675,57 @@ def test_cuda_p2c_round_launches_the_kernel_once(setup):
     rr = e.run_round(e.load_view(0), seed=0, num_hypotheses=_H)
     assert _kernels.hc_track.launches == before + 1
     assert rr.stats.num_converged > 0 and not rr.pruned.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["segmented", "fused"])
+def test_cuda_sharded_equals_unsharded(setup, backend):
+    """Two shards sharing the card, each on its own stream, launch the
+    kernel on their blocks and give the unsharded call bit for bit."""
+    cfg, port, x0, tgt = setup
+    one = fused.make_track_fn(port, cfg.hc)(x0, tgt)
+    track = pmesh.make_sharded_track_fn(port, cfg.hc, ["cuda:0"] * 2,
+                                        backend=backend)
+    before = _kernels.hc_track.launches
+    res = track(x0, tgt)
+    torch.cuda.synchronize()
+    assert _kernels.hc_track.launches - before >= 2
+    _assert_same(res.track if backend == "segmented" else res, one)
+
+
+@pytest.mark.gpu
+def test_cuda_cross_shard_abort_stops_the_other_shard(setup):
+    """Shard 0's hypothesis targets the start parameters (pass ratio 0,
+    imaginary tolerance huge, TrunPaths off): its hit stops shard 1 on the
+    same card before its budget."""
+    cfg, port, x0, tgt = setup
+    T = port.num_tracks
+    tgt = tgt.clone()
+    tgt[:T] = torch.as_tensor(port.start_params, device=tgt.device)
+    hc = dataclasses.replace(cfg.hc, segment_steps=2, init_delta_t=0.5,
+                             truncate_paths=False)
+    rc = dataclasses.replace(cfg.ransac, abort_by_good_sol=True,
+                             pass_inlier_support_ratio=0.0, imag_part_tol=1e9)
+    view = data_io.load_ransac_view(config.ransac_data_dir(cfg), 0)
+    edgels = torch.as_tensor(view.edge_locations[:64], device=tgt.device)
+    res = pmesh.make_sharded_track_fn(port, hc, ["cuda:0"] * 2,
+                                      ransac_cfg=rc)(
+        x0, tgt, edgels, torch.eye(3, device=tgt.device), 64)
+    assert res.found and 0 <= res.found_path < T
+    assert int(res.track.num_steps[T:].max()) < hc.max_steps
+    assert not bool(res.track.converged[T:].any())
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_round_equals_unsharded_round(setup):
+    """H = 3 over two shards on the card (padded to 4): the round's real
+    paths equal the unsharded round's, flags and steps."""
+    cfg, _, _, _ = setup
+    e1 = engine.TrifocalPoseEngine(cfg)
+    e2 = engine.TrifocalPoseEngine(dataclasses.replace(cfg, num_devices=2),
+                                   device=["cuda:0"] * 2)
+    view = e1.load_view(0)
+    r1, r2 = (e.run_round(view, seed=0, num_hypotheses=3) for e in (e1, e2))
+    assert r2.stats.num_paths == r1.stats.num_paths
+    for f in ("converged", "inf_fail", "pruned", "num_steps"):
+        assert np.array_equal(getattr(r1, f), getattr(r2, f)), f

@@ -30,6 +30,8 @@ _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.reduce",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.schedule",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.ops.segmented",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.parallel",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.parallel.mesh",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.data_io",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.evaluation",
@@ -85,6 +87,19 @@ def test_microbench_torch_names_no_jax_module():
     read, not run."""
     names = list(_imported_names(os.path.join(REPO, "tools",
                                               "microbench_torch.py")))
+    assert any(n.startswith("trifocal_pose_estimation_using_improved_gpuhc_"
+                            "torch") for n in names)
+    for n in names:
+        assert not n.startswith((_JAX_PKG, "jax")), n
+
+
+@pytest.mark.parametrize("tool", ["profile_torch_round.py",
+                                  "time_torch_tracker.py",
+                                  "scaling_torch.py"])
+def test_torch_tools_name_no_jax_module(tool):
+    """The other tools/*_torch*.py import the port inside main, so they
+    are read, not run."""
+    names = list(_imported_names(os.path.join(REPO, "tools", tool)))
     assert any(n.startswith("trifocal_pose_estimation_using_improved_gpuhc_"
                             "torch") for n in names)
     for n in names:

@@ -116,8 +116,10 @@ def test_kernel_plan_header(constants):
     ("truncate_paths", None), ("num_devices", 2), ("num_devices", 8)])
 def test_non_shipped_config_rejected(cfg, knob, value):
     if knob == "num_devices":
-        # The JAX engine shards over num_devices; the port does not.
-        bad = dataclasses.replace(cfg, num_devices=value)
+        # Sharded P2C: the JAX engine would track with its oracle instead.
+        bad = dataclasses.replace(cfg, num_devices=value,
+                                  hc=dataclasses.replace(cfg.hc,
+                                                         backend="p2c"))
     else:
         bad = dataclasses.replace(cfg, hc=dataclasses.replace(
             cfg.hc, **{knob: value}))
@@ -134,7 +136,7 @@ def test_handoff_with_frozen_rk_stages_rejected(cfg):
 
 
 def test_shipped_config_accepted(cfg):
-    """The defaults, one device or all visible ones (one card), the
+    """The defaults, one device, all visible ones or a sharded mesh, the
     schedule solve and the TrunRANSAC abort round, the oracle and the P2C
     backends, and TrunPaths off."""
     config.check_shipped(cfg)
@@ -142,8 +144,10 @@ def test_shipped_config_accepted(cfg):
         config.check_shipped(dataclasses.replace(
             cfg, hc=dataclasses.replace(cfg.hc, backend=backend,
                                         truncate_paths=False)))
-    for devices in (None, 1):
+    for devices in (None, 1, 2, 8):
         config.check_shipped(dataclasses.replace(cfg, num_devices=devices))
+    config.check_shipped(dataclasses.replace(
+        cfg, num_devices=4, hc=dataclasses.replace(cfg.hc, backend="xla")))
     config.check_shipped(dataclasses.replace(
         cfg, hc=dataclasses.replace(cfg.hc, solver="schedule"),
         ransac=dataclasses.replace(cfg.ransac, abort_by_good_sol=True)))

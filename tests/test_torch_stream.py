@@ -18,6 +18,11 @@ in every view's first chunk (pass ratio 0), and a miss in every chunk
 (every hypothesis patched, the pass ratio 0.9), which runs each view's
 second chunk after its first was read as a miss.
 
+Sharded over two CPU shards (``num_devices=2``, which the JAX package
+never tested in its stream), the stream-abort pipeline gives each view the
+sharded abort round's result, the hypotheses padded to whole shards and
+the chunks rounded up to them.
+
 The device selection's 39 floats equal the JAX engine's
 ``_build_device_select`` on the same seeded inputs, padding excluded.  In
 the slow tier: the stream-abort pipeline against the JAX engine's, its
@@ -133,6 +138,34 @@ def test_stream_abort_equals_abort_round_per_view(monkeypatch, case):
         _same_counts(r, rr)
         assert r.found_pose == (case == "hit")
         assert r.stats.num_paths == _H * port.problem.num_tracks
+
+
+@pytest.mark.parametrize("case", ["hit", "miss"])
+def test_sharded_stream_abort_equals_abort_round_per_view(monkeypatch, case):
+    """Two CPU shards, H = 3: each view samples 4 hypotheses (the padding
+    to whole shards), both chunk sizes 1 round up to 2 hypotheses, and the
+    stream gives each view the sharded abort round's chunks, counts and
+    supports, padding excluded.  The miss case also patches the padded
+    hypothesis, whose paths run in the last chunk and are not counted."""
+    H = 3
+    if case == "hit":
+        hyps, kw = [0], dict(pass_inlier_support_ratio=0.0)
+    else:
+        hyps, kw = [0, 1, 2, 3], {}
+    cfg = _patched(monkeypatch, hyps, abort_by_good_sol=True, abort_chunk=1,
+                   stream_abort_chunk=1, **kw)
+    port = engine.TrifocalPoseEngine(dataclasses.replace(cfg, num_devices=2),
+                                     device=["cpu", "cpu"])
+    assert port._abort and port.track.backend == "segmented"
+    views = [0, 1]
+    results, vps = port.run_stream(views, num_hypotheses=H)
+    assert len(results) == len(views) and vps > 0
+    for vi, r in zip(views, results):
+        rr = port.run_round(port.load_view(vi), 0, H)
+        assert r.chunks_run == rr.chunks_run == (1 if case == "hit" else 2)
+        _same_counts(r, rr)
+        assert r.found_pose == (case == "hit")
+        assert r.stats.num_paths == H * port.problem.num_tracks
 
 
 @pytest.mark.parametrize("abort", [False, True])

@@ -3,7 +3,7 @@
 on the card.
 
     python3 tools/profile_torch_round.py [--hypotheses 100] [--view 0] [--seed 0]
-                                         [--abort] [--stream N]
+                                         [--abort] [--stream N] [--shards K]
 
 Runs a warm-up round of the engine's default configuration (or, with
 ``--abort``, of the TrunRANSAC abort round), then one round under
@@ -13,7 +13,8 @@ and prints: the card's name and power limit as nvidia-smi gives them,
 the round's host-clock spans (track_ms, total_ms; for a stream, views/s
 and the mean per-view latency), the device's busy time (the union of all
 kernel intervals) and idle share over the profiled span, and the ten
-kernels with the most device time.  Needs a CUDA card; exits nonzero
+kernels with the most device time.  ``--shards K`` shards the hypotheses
+over K shards that share the first card (``num_devices=K``).  Needs a CUDA card; exits nonzero
 without one.
 """
 
@@ -54,6 +55,8 @@ def main(argv=None) -> int:
                     help="profile the abort round (abort_by_good_sol)")
     ap.add_argument("--stream", type=int, default=0, metavar="N",
                     help="profile run_stream over N views instead")
+    ap.add_argument("--shards", type=int, default=1, metavar="K",
+                    help="shard the hypotheses over K shards on cuda:0")
     ap.add_argument("--data-root",
                     default=os.path.join(ROOT, "data", "synth_trifocal"))
     args = ap.parse_args(argv)
@@ -78,7 +81,12 @@ def main(argv=None) -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.splitlines()[0])
-    eng = engine.TrifocalPoseEngine(cfg)
+    if args.shards > 1:
+        eng = engine.TrifocalPoseEngine(
+            dataclasses.replace(cfg, num_devices=args.shards),
+            device=["cuda:0"] * args.shards)
+    else:
+        eng = engine.TrifocalPoseEngine(cfg)
     view = eng.load_view(args.view)
     eng.run_round(view, args.seed, args.hypotheses)  # warm-up
     n_views = data_io.num_ransac_views(ransac_data_dir(cfg))
@@ -107,7 +115,8 @@ def main(argv=None) -> int:
         span = (f"round wall {wall_ms:.3f} ms (profiled), track_ms "
                 f"{rr.track_ms:.3f}, total_ms {rr.total_ms:.3f}"
                 + (f", chunks run {rr.chunks_run}" if args.abort else ""))
-    print(f"{torch.cuda.get_device_name(0)}: H={args.hypotheses} {span}; "
+    print(f"{torch.cuda.get_device_name(0)}: H={args.hypotheses}, "
+          f"{args.shards} shard(s) on cuda:0, {span}; "
           f"device busy {busy_ms:.3f} ms, idle share "
           f"{1.0 - busy_ms / wall_ms:.4f}; {len(kernels)} device events")
     by_name = {}

@@ -14,14 +14,17 @@ the engine and through the full-pivot oracle tracker on the CPU
 the JAX package's bands.  ``--ablation`` prints the strategy-ablation
 ladder instead of the rounds: P2C, PH, +TrunPaths, +compaction,
 +TrunRANSAC, each the best track_ms of several seeds after a warm-up.
-Hypothesis sharding is not ported yet: ``--devices N`` with N > 1 is
-refused before any tracking.
+``--devices N`` with N > 1 shards the hypotheses over N devices
+(``parallel/mesh.py``): the first N cards, or with ``--platform cpu`` N
+CPU shards; the data root's ``Num_Of_GPUs`` sets it when the flag is
+absent.  ``--ablation`` refuses it before any tracking: its P2C rung does
+not shard.
 
 Usage:
   python -m trifocal_pose_estimation_using_improved_gpuhc_torch.cli \\
       [--views 1] [--hypotheses 100] [--times 1] [--platform gpu|cpu] \\
       [--stream] [--abort] [--cross-check | --cross-check-full] \\
-      [--ablation] [--output-dir build/cli_out]
+      [--ablation] [--devices N] [--output-dir build/cli_out]
 """
 
 from __future__ import annotations
@@ -71,8 +74,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="Abort_RANSAC_by_Good_Sol: stop once a pose with "
                          ">=90%% inlier support is found on-device")
     ap.add_argument("--devices", type=int, default=None,
-                    help="devices to shard hypotheses over: only 1 (sharding "
-                         "is not ported yet)")
+                    help="shard hypotheses over the first N devices (N CPU "
+                         "shards with --platform cpu; default: the data "
+                         "root's Num_Of_GPUs, else 1)")
     ap.add_argument("--data-root", default=None)
     ap.add_argument("--output-dir", default=DEFAULT_OUTPUT_DIR)
     ap.add_argument("--ablation", action="store_true",
@@ -96,12 +100,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
-    if args.devices is not None and args.devices > 1:
-        print(f"--devices {args.devices} is not ported to the torch package "
-              f"yet: ROADMAP.md Queue 1 item 5 (hypothesis sharding)",
-              file=sys.stderr)
-        return 2
-
     import torch
 
     from trifocal_pose_estimation_using_improved_gpuhc_torch.engine import (
@@ -120,7 +118,14 @@ def main(argv=None) -> int:
     # The flags override the data root's settings.
     cfg = config_for_data_root(args.data_root, args.problem)
     if args.devices is not None:
-        cfg = dataclasses.replace(cfg, num_devices=None)
+        cfg = dataclasses.replace(
+            cfg, num_devices=args.devices if args.devices > 1 else None)
+    ndev = cfg.num_devices or 1
+    if args.ablation and ndev > 1:
+        print(f"--ablation does not shard: its P2C rung runs on one device "
+              f"(the JAX engine would track it with its oracle over "
+              f"{ndev} devices); run it with --devices 1", file=sys.stderr)
+        return 2
     if args.abort:
         cfg = dataclasses.replace(
             cfg,
@@ -136,7 +141,7 @@ def main(argv=None) -> int:
         print("no CUDA device; pass --platform cpu to run on the CPU",
               file=sys.stderr)
         return 2
-    device = "cpu" if args.platform == "cpu" else None
+    device = cpu_devices(ndev) if args.platform == "cpu" else None
     os.makedirs(args.output_dir, exist_ok=True)
     if args.ablation:
         return run_ablation(cfg, args, device)
@@ -146,7 +151,8 @@ def main(argv=None) -> int:
           f"{args.hypotheses or cfg.ransac.num_iterations} hypotheses on "
           f"{engine.device}"
           + (f" ({torch.cuda.get_device_name(engine.device)})"
-             if engine.device.type == "cuda" else ""))
+             if engine.device.type == "cuda" else "")
+          + (f" over {ndev} devices" if ndev > 1 else ""))
 
     timings, all_stats, found_count, err_lines = [], [], 0, []
     view0 = engine.load_view(args.start_view)
@@ -301,6 +307,11 @@ ABLATION_RUNGS = [
 ]
 
 
+def cpu_devices(ndev: int):
+    """The engine's device argument for ndev shards on the CPU."""
+    return "cpu" if ndev == 1 else ["cpu"] * ndev
+
+
 def run_ablation(cfg, args, device=None) -> int:
     """The incremental-strategy ladder in one invocation, as the JAX CLI's
     ``run_ablation`` prints it: each rung a configuration of the one
@@ -356,7 +367,8 @@ def cross_check_hypotheses(args, cfg, full: bool) -> int:
 def run_cross_check(engine, cfg, args, view0, full: bool) -> int:
     """The reference's correctness story: round 0 (view ``view0``, seed 0)
     through the engine and through an oracle engine (``backend="xla"``)
-    on the CPU, compared under the JAX package's bands.  Writes the
+    on the CPU (sharded over cfg.num_devices CPU shards, as the JAX CLI's
+    oracle engine is), compared under the JAX package's bands.  Writes the
     oracle's statistics and converged tracks into the output directory;
     returns 1 on MISMATCH."""
     from trifocal_pose_estimation_using_improved_gpuhc_torch.engine import (
@@ -379,7 +391,8 @@ def run_cross_check(engine, cfg, args, view0, full: bool) -> int:
                               collect_solutions=True)
     print(f"[cross-check] hc_track kernel launches in the {engine.device} "
           f"round: {_kernels.hc_track.launches - launches}")
-    cpu_engine = TrifocalPoseEngine(cpu_cfg, device="cpu")
+    cpu_engine = TrifocalPoseEngine(cpu_cfg,
+                                    device=cpu_devices(cfg.num_devices or 1))
     rr = cpu_engine.run_round(view0, seed=0, num_hypotheses=h_cc,
                               collect_solutions=True)
     print(f"cpu-hc: conv {rr.stats.num_converged}, cand {rr.num_candidates}, "

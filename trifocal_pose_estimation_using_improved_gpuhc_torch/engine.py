@@ -34,6 +34,21 @@ another device, and never moves work elsewhere.  Unlike the JAX engine,
 which tracks with its oracle whenever it runs on the CPU, it keeps the
 configured backend on every device: on the CPU ``backend="fused"`` runs
 ``fused.track_plain``, the kernel's twin.
+
+With ``num_devices`` above 1 the hypotheses are sharded over a mesh
+(``parallel/mesh.py``): by default the first ``num_devices`` cards, or
+the caller's list of devices, one per shard (one device may repeat).  As
+in the JAX engine (its ``engine.py:96-128``, ``:377-381``, ``:410``,
+``:795-797``), the tracker is the sharded segmented one when compaction or
+the abort is on, else one sharded call, or the sharded oracle; H is padded
+to whole shards with real samples (the first H of them are the unpadded
+round's), which are tracked and then sliced away; and the abort chunks
+are rounded up to whole shards.  Padded hypotheses and a ragged tail's
+repeats lie in the last chunk: a hit among them stops no chunk that would
+otherwise run, but, as in the JAX engine, it ends that chunk's tracking at
+the boundary where it is found, the real paths' too.  The round's outcome
+is scored over the real hypotheses only.  Staging, scoring and the
+stream's selection run on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -53,6 +68,9 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     ransac,
     segmented,
     tracker,
+)
+from trifocal_pose_estimation_using_improved_gpuhc_torch.parallel import (
+    mesh as pmesh,
 )
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import data_io
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import evaluation as evl
@@ -130,18 +148,28 @@ class _OneCall:
 
 class TrifocalPoseEngine:
     def __init__(self, cfg: EngineConfig, device=None, track_fn=None):
-        """device: None means the first CUDA card, and raises without one.
-        track_fn: a one-call tracker ``(x0, target_params) -> TrackResult``
-        in place of the configured one (the abort round needs the
-        segmented tracker, so it refuses one)."""
+        """device: None means the first CUDA card (the first num_devices
+        cards when sharded), and raises without them; else a device, or a
+        list of num_devices devices, one per shard.  track_fn: a one-call
+        tracker ``(x0, target_params) -> TrackResult`` in place of the
+        configured one (the abort round needs the segmented tracker, and a
+        sharded engine its sharded one, so they refuse one)."""
         check_shipped(cfg)
+        self._ndev = cfg.num_devices or 1
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "no CUDA device; pass device='cpu' to run on the CPU")
-            device = "cuda:0"
+            self.mesh = pmesh.make_mesh(self._ndev)
+        elif isinstance(device, (list, tuple)):
+            self.mesh = pmesh.make_mesh(self._ndev, device)
+        elif self._ndev == 1:
+            self.mesh = [torch.device(device)]
+        else:
+            raise ValueError(f"num_devices={self._ndev}: pass a list of "
+                             f"{self._ndev} devices, one per shard")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = self.mesh[0]
         self.problem = trifocal.TrifocalProblem.load(cfg)
         backend = cfg.hc.backend
         # The abort needs the segmented tracker: the oracle's and the P2C
@@ -152,8 +180,16 @@ class TrifocalPoseEngine:
             cfg.hc.compact_survivors or self._abort)
         if track_fn is not None and self._abort:
             raise ValueError("the abort round runs the segmented tracker")
+        if track_fn is not None and self._ndev > 1:
+            raise ValueError("a sharded engine runs its sharded tracker")
         if track_fn is not None:
             self.track = track_fn
+        elif self._ndev > 1:
+            self.track = pmesh.make_sharded_track_fn(
+                self.problem, cfg.hc, self.mesh,
+                backend=("xla" if backend == "xla" else "segmented"
+                         if self._segmented else "fused"),
+                ransac_cfg=cfg.ransac)
         elif backend == "xla":
             self.track = tracker.make_track_fn(self.problem, cfg.hc)
         elif backend == "p2c":
@@ -174,8 +210,12 @@ class TrifocalPoseEngine:
         return data_io.load_ransac_view(ransac_data_dir(self.cfg), view_index)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in {d for d in self.mesh if d.type == "cuda"}:
+            torch.cuda.synchronize(d)
+
+    def _whole_shards(self, h: int) -> int:
+        """h hypotheses rounded up to whole shards."""
+        return -(-h // self._ndev) * self._ndev
 
     def _masks(self, res: fused.TrackResult):
         """Real-solution and candidate masks: a candidate is converged, its
@@ -240,19 +280,20 @@ class TrifocalPoseEngine:
         same."""
         cfg = self.cfg
         H = num_hypotheses or cfg.ransac.num_iterations
+        Hp = self._whole_shards(H)
         T = self.problem.num_tracks
         dev = self.device
 
         samples = ransac.sample_edgel_triplets(
-            seed, view.edge_locations.shape[0], H)
+            seed, view.edge_locations.shape[0], Hp)
         tgt = ransac.build_target_params(
             view.edge_locations, view.edge_tangents, samples)
         edgels = torch.as_tensor(view.edge_locations, device=dev)
         if self._abort:
-            return self._abort_round(view, tgt, edgels, collect_solutions)
+            return self._abort_round(view, tgt, H, edgels, collect_solutions)
         # Staging sits outside the timed span, as in the reference.
         tgt_d = torch.as_tensor(tgt, device=dev).repeat_interleave(T, dim=0)
-        x0 = self._start.repeat(H, 1)
+        x0 = self._start.repeat(Hp, 1)
         self._sync()
 
         t_start = time.perf_counter()
@@ -261,10 +302,15 @@ class TrifocalPoseEngine:
             res = res.track
         self._sync()
         t_track = time.perf_counter()
+        if Hp != H:
+            res = fused.TrackResult(**{
+                f.name: getattr(res, f.name)[:H * T]
+                for f in dataclasses.fields(res)})
         return self._result(view, res, edgels, collect_solutions, t_start,
                             t_track)
 
-    def _abort_round(self, view, tgt: np.ndarray, edgels: torch.Tensor,
+    def _abort_round(self, view, tgt: np.ndarray, H: int,
+                     edgels: torch.Tensor,
                      collect_solutions: bool = False) -> RoundResult:
         """TrunRANSAC: the hypotheses in chunks of abort_chunk, stopping at
         the first chunk whose tracking found a pose (engine.py:401-534 of
@@ -273,12 +319,13 @@ class TrifocalPoseEngine:
         chunk.  Here the segment loop has already read the flag at chunk
         i's last boundary, so nothing is left to hide: chunk i+1 starts only
         when chunk i found nothing.  Chunks never run are scored as having
-        no candidates."""
+        no candidates.  tgt holds the H real hypotheses and the padding to
+        whole shards."""
         cfg = self.cfg
-        H, T = len(tgt), self.problem.num_tracks
+        Hp, T = len(tgt), self.problem.num_tracks
         n_edgels = view.edge_locations.shape[0]
-        chunk_h = min(cfg.ransac.abort_chunk, H)
-        n_chunks = -(-H // chunk_h)
+        chunk_h = self._whole_shards(min(cfg.ransac.abort_chunk, Hp))
+        n_chunks = -(-Hp // chunk_h)
         x0 = self._start.repeat(chunk_h, 1)
         chunks = self._chunk_targets(tgt, chunk_h)
         self._sync()
@@ -435,17 +482,20 @@ class TrifocalPoseEngine:
         comes back.  A view's next chunk is queued only after its last one
         was read as a miss, at the front of the queue, so the second slot
         holds another view's chunk and a hit wastes no device time.
-        Skipped chunks count as unconverged (``num_paths`` is H x T)."""
+        Skipped chunks count as unconverged (``num_paths`` is H x T).
+        Sharded, each view samples H padded to whole shards and the abort
+        chunks are rounded up to whole shards; the padding is not counted."""
         view_indices = list(view_indices)
         nv = len(view_indices)
         if not nv:
             return [], 0.0
         H = num_hypotheses or self.cfg.ransac.num_iterations
-        chunk_h = (min(self.cfg.ransac.stream_abort_chunk, H) if self._abort
-                   else H)
+        Hp = self._whole_shards(H)
+        chunk_h = (self._whole_shards(min(self.cfg.ransac.stream_abort_chunk,
+                                          Hp)) if self._abort else Hp)
         T = self.problem.num_tracks
         ratio = self.cfg.ransac.pass_inlier_support_ratio
-        n_chunks = -(-H // chunk_h)
+        n_chunks = -(-Hp // chunk_h)
         x0 = self._start.repeat(chunk_h, 1)
         prep = [None] * nv   # (view, its chunks' targets, its edgels)
 
@@ -457,7 +507,7 @@ class TrifocalPoseEngine:
             tgt = ransac.build_target_params(
                 view.edge_locations, view.edge_tangents,
                 ransac.sample_edgel_triplets(
-                    seed, view.edge_locations.shape[0], H))
+                    seed, view.edge_locations.shape[0], Hp))
             prep[i] = (view, self._chunk_targets(tgt, chunk_h),
                        torch.as_tensor(view.edge_locations,
                                        device=self.device))

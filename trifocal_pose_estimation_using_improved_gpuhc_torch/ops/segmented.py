@@ -31,10 +31,13 @@ call on the carried state.
 
 The loop ends when no path is active, when the budget is spent, or when
 the found flag is set.  The JAX package keeps that test on the device in
-a while loop; eager PyTorch reads it once per segment: 16 bytes (the
-active count and the loop test, which includes the found flag), copied
-behind the segment's work and waited for by an event, which is cheap on a
-local card.
+a while loop; eager PyTorch reads it once per segment: 24 bytes (the
+active count, the run's own loop test and the found flag, kept apart so
+that a sharded run can reduce them over its shards), copied behind the
+segment's work and waited for by an event, which is cheap on a local
+card.  ``parallel/mesh.py`` drives one run per shard of the hypotheses
+and reduces the loop test across them at every boundary, as the JAX
+package's ``axis_name`` branches do.
 """
 
 from __future__ import annotations
@@ -118,10 +121,14 @@ class _Run:
     """One segmented tracking call in progress (see the module docstring).
 
     ``advance`` dispatches one segment and the boundary work and queues the
-    loop test; ``keep`` reads it; ``track_result`` undoes the packing and
-    ``result`` also reads the abort's outcome.  Two runs advanced in turns
-    keep the card busy: while the host waits for one run's loop test and
-    queues its next segment, the card tracks the other's."""
+    loop test; ``keep`` reads it (``poll`` reads its two parts);
+    ``track_result`` undoes the packing and ``result`` also reads the
+    abort's outcome.  Two runs advanced in turns keep the card busy: while
+    the host waits for one run's loop test and queues its next segment, the
+    card tracks the other's.  A run with no active path launches nothing
+    when advanced (a shard of a sharded run that goes on for the others'
+    sake); its scoring and packing still run, as in the JAX package's
+    sharded loop."""
 
     def __init__(self, tr: "_Tracker", x0, target_params, edgels, intrinsics,
                  n_edgels):
@@ -155,20 +162,23 @@ class _Run:
                 n_edgels if n_edgels is not None else len(edgels)))
         self.si = 0
         self.n_live = B   # paths the next launch covers
+        self.n_active = B
         self._flag = None
         self.work = None  # track_plain's work counts, if asked for
+        self.launches = 0  # this run's kernel launches
 
     def advance(self) -> None:
         tr, hc = self.tr, self.tr.hc
         niter = min(tr.seg, tr.budget - self.si * tr.seg)
         n = self.n_live
-        if isinstance(self.aux, fused._Tables):
+        if self.n_active and isinstance(self.aux, fused._Tables):
             self.x[:n], self.xl[:n], self.fl[:n] = fused.track_plain(
                 tr.consts, hc, self.x[:n], self.xl[:n], self.fl[:n],
                 self.efg[:n], niter=niter, tables=self.aux, work=self.work)
-        else:
+        elif self.n_active:
             tr.kernels.hc_track(self.x[:n], self.xl[:n], self.fl[:n],
                                 self.efg[:n], self.aux, niter, hc)
+            self.launches += 1
         if tr.abort:
             self._score_new()
         if hc.compact_survivors:
@@ -180,17 +190,22 @@ class _Run:
         active = active_mask(hc, self.fl)
         n_active = active.sum()
         keep = (n_active > 0) & (self.si < tr.n_segments)
-        if tr.abort:
-            keep = keep & ~self.found
-        self._flag = Readback(torch.stack([n_active,
-                                           keep.to(n_active.dtype)]))
+        self._flag = Readback(torch.stack([n_active, keep.to(n_active.dtype),
+                                           self.found.to(n_active.dtype)]))
+
+    def poll(self) -> tuple:
+        """(this run's loop test without the found flag, the found flag):
+        waits for the queued loop test."""
+        n_active, keep, found = self._flag.wait().tolist()
+        self.n_active = n_active
+        if self.tr.hc.compact_survivors:
+            self.n_live = n_active
+        return bool(keep), bool(found)
 
     def keep(self) -> bool:
         """Whether another segment runs: waits for the queued loop test."""
-        n_active, keep = self._flag.wait().tolist()
-        if self.tr.hc.compact_survivors:
-            self.n_live = n_active
-        return bool(keep)
+        keep, found = self.poll()
+        return keep and not found
 
     def _score_new(self) -> None:
         """Score newly converged paths (the module docstring's gate)."""

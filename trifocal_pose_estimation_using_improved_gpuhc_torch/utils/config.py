@@ -186,16 +186,18 @@ def check_shipped(cfg: EngineConfig) -> None:
     """Raise ValueError unless the engine runs this configuration as the
     JAX package does: ``check_hc``, and the engine's own knobs (backend
     "fused", "xla" or "p2c", TrunPaths on or off, the abort on or off, and
-    ``num_devices`` None or 1: sharding is not ported)."""
+    any ``num_devices``: None and values up to 1 are one shard, more shard
+    the hypotheses, but not with backend "p2c")."""
     check_hc(cfg.hc)
     _check_values("hc", cfg.hc, _ENGINE_HC)
     _check_values("ransac", cfg.ransac, _SHIPPED_RANSAC)
-    if cfg.num_devices not in (None, 1):
-        # The JAX engine shards the hypotheses over num_devices and rounds
-        # the abort chunk up to whole shards; the port runs on one card.
-        raise ValueError(f"num_devices={cfg.num_devices!r} is not supported "
-                         f"by the torch port (only None or 1): hypothesis "
-                         f"sharding is not ported")
+    if (cfg.num_devices or 1) > 1 and cfg.hc.backend == "p2c":
+        # The JAX engine's sharded branch comes before its P2C branch, so
+        # there num_devices > 1 with P2C quietly tracks with the oracle
+        # (engine.py:97-128); the port copies no silent swap.
+        raise ValueError(f"num_devices={cfg.num_devices!r} with hc.backend="
+                         f"'p2c' is not supported by the torch port: the "
+                         f"JAX engine would track with its oracle instead")
 
 
 def resolve_data_root(cfg: EngineConfig, verbose: bool = True) -> EngineConfig:
