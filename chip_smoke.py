@@ -28,12 +28,15 @@ Phases (each prints its lines; any failure raises and exits nonzero):
   7. the TrunRANSAC abort round (abort_chunk=12, H=100): the chunks it ran,
      the time to the pose and the pose against ground truth;
   8. the step variants (predictor rk2 and rk3, corrector_jacobian_reuse
-     1 and 2, predictor_handoff, rk_jacobian_reuse), each its own build of
-     the kernel: kernel against plain on the H=10 round's paths with the
-     plain run's full solves and replays and the bound from them, an H=100
-     engine round, the segmented tracker alone on the H=100 inputs against
-     track_plain over the same segments, and an abort round under
-     corrector_jacobian_reuse=2;
+     1 and 2, predictor_handoff at tile 1 and at tile 128, where the
+     handoff build's tiled kernel decides it per tile, rk_jacobian_reuse),
+     each its own build of the kernel: kernel against plain on the H=10
+     round's paths with the plain run's full solves and replays and the
+     bound from them (at tile 128 bit for bit, in one launch, whose last
+     tile an active copy of path 0 pads, and segmented), an H=100 engine
+     round, the segmented tracker alone on the H=100 inputs against
+     track_plain over the same segments (at tile 128 also one launch
+     timed), and an abort round under corrector_jacobian_reuse=2;
   9. the evaluation variants: eval_precision "split3_rk2" (the RK stages
      at 2-term bf16 splits) and pair_coef_basis "abc", each a build of its
      own, as in phase 8 and bit for bit against their plain twins, with
@@ -110,12 +113,19 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      tcp://127.0.0.1, each one shard on cuda:0 (this script with
      --shard-worker RANK PORT): each rank's block of H=8 hypotheses bit
      for bit with the unsharded launch's slice, and a hit on rank 1 that
-     stops rank 0.
+     stops rank 0;
+ 15. the measurement tools on the card, each in a subprocess that must
+     exit 0 (outputs under build/tools_out/): f64_reconcile_torch at H=2
+     with the oracle and with K1 as the float32 side, reconcile_stats_torch
+     at H=100 (TrunPaths off and on, on K1), accuracy_sweep_torch over the
+     3 views (--retries 1 --exhaustive 0, every view found) and
+     roofline_torch on phase 10's measured step.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
-the round's 30,700 paths; and one per variant, with its segmented tracker's
-ms, the plain run over the same segments and plain_paths; the two
+the round's 30,700 paths; and one per variant, with its segmented
+tracker's ms, the plain run over the same segments and plain_paths
+(cph128 also with ms_one_launch, its tile and its kernel); the two
 structures repeat the reduced entry's numbers with their own launches;
 one hc_phase entry per phase and program of phase 10, ms and plain_ms per
 iteration over the 30,700 paths, launches in the timed table and
@@ -160,6 +170,8 @@ PERTURBATIONS = 4          # 1e-7 relative nudges (tests/test_torch_tracker.py)
 MONO_SEEDS, MONO_LOOPS = 150, 3
 # Phase 13: the P2C plan's bit-for-bit check.
 H_P2C = 2
+# Phase 15: the float64 reconciliation's hypotheses.
+H_TOOLS_F64 = 2
 # Phase 14: shards sharing the one card (3 pads H=100 to 102), the
 # two-process run's hypotheses and its worker's command-line flag.
 DEVICE = "cuda:0"
@@ -182,6 +194,9 @@ VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
             "cjr1": dict(corrector_jacobian_reuse=1),
             "cjr2": dict(corrector_jacobian_reuse=2),
             "cph": dict(predictor_handoff=True, tile=1),
+            # The handoff decided per tile of 128 paths (the JAX default),
+            # the handoff build's tiled kernel.
+            "cph128": dict(predictor_handoff=True, tile=128),
             "rkj": dict(rk_jacobian_reuse=True)}
 # The evaluation variants of phase 9: two builds of their own, and two
 # structures that run the default build.
@@ -192,7 +207,8 @@ EVAL_STRUCTURES = {"gathered": dict(eval_structure="gathered"),
 _JAX_FUSED = "trifocal_pose_estimation_using_improved_gpuhc_tpu/ops/fused.py"
 REPLACES_VARIANT = {"rk2": f"{_JAX_FUSED}:1743", "rk3": f"{_JAX_FUSED}:1747",
                     "cjr1": f"{_JAX_FUSED}:1784", "cjr2": f"{_JAX_FUSED}:1784",
-                    "cph": f"{_JAX_FUSED}:1703", "rkj": f"{_JAX_FUSED}:1699",
+                    "cph": f"{_JAX_FUSED}:1703", "cph128": f"{_JAX_FUSED}:1839",
+                    "rkj": f"{_JAX_FUSED}:1699",
                     "split2": f"{_JAX_FUSED}:140", "abc": f"{_JAX_FUSED}:743",
                     "gathered": f"{_JAX_FUSED}:783",
                     "merged": f"{_JAX_FUSED}:816"}
@@ -236,7 +252,8 @@ def timed(fn):
 
 def ptxas_lines(log):
     """{kernel: ptxas's resource lines (registers, shared memory, spills)}
-    of one build's log; a phase kernel is named hc_phase_kernel<phase>."""
+    of one build's log; a phase kernel is named hc_phase_kernel<phase>,
+    the handoff build's tiled tracker hc_track_tile_kernel."""
     from trifocal_pose_estimation_using_improved_gpuhc_torch.ops._kernels import (
         PHASES,
     )
@@ -247,6 +264,8 @@ def ptxas_lines(log):
             m = re.search(r"hc_phase_kernelILi(\d+)E", line)
             fn = (f"hc_phase_kernel<{PHASES[int(m.group(1))]}>" if m
                   else "hc_track_kernel" if "hc_track_kernel" in line
+                  else "hc_track_tile_kernel"
+                  if "hc_track_tile_kernel" in line
                   else "solve_replay_kernel")
             out[fn] = []
         elif fn and ("registers" in line or "spill" in line):
@@ -1079,6 +1098,73 @@ def shard_worker(rank: int, port: int) -> int:
     return 0
 
 
+def run_tool(name, *args):
+    """tools/<name>.py with ``args`` in a subprocess on the card: asserts
+    that it exits 0 and prints the card's line, saves its output under
+    build/tools_out/ and returns its last line's JSON object."""
+    out_dir = os.path.join(ROOT, "build", "tools_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join("tools", f"{name}.py"),
+                           *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    secs = time.perf_counter() - t0
+    tag = "_".join([name, *(a.strip("-") for a in args)])
+    with open(os.path.join(out_dir, f"{tag}.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    assert proc.returncode == 0, (name, args, proc.returncode,
+                                  proc.stderr[-2000:])
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].startswith("device: cuda:0 "), lines[0]
+    print(f"tool {name} {' '.join(args)}: rc 0 in {secs:.1f} s; "
+          f"{lines[0]}", flush=True)
+    return json.loads(lines[-1])
+
+
+def tools_phase(step_us, paths):
+    """Phase 15 (see the module docstring): the four tools on cuda:0 at a
+    small size, each in a subprocess that must exit 0 and print its
+    figures; the roofline on phase 10's measured step."""
+    for tracker in ("oracle", "k1"):
+        f = run_tool("f64_reconcile_torch", "--hypotheses", str(H_TOOLS_F64),
+                     "--chunk", str(H_TOOLS_F64), "--tracker",
+                     tracker)["f64_reconcile"]
+        c = f["f32_vs_f64"]
+        print(f"f64_reconcile ({tracker}) H={H_TOOLS_F64}, {f['paths']} "
+              f"paths, TrunPaths off: converged f32 {f['f32']['converged']} "
+              f"/ f64 {f['f64']['converged']}, inf {f['f32']['inf']} / "
+              f"{f['f64']['inf']}, real@1e-4 {f['f32']['real_by_tol']['0.0001']}"
+              f" / {f['f64']['real_by_tol']['0.0001']}; flag flips converged "
+              f"{c['converged_flips']}, inf {c['inf_flips']}; real flips "
+              f"f32-only {c['real_lo_only']}, f64-only {c['real_hi_only']}, "
+              f"both {c['real_both']}; endpoint distance p50 "
+              f"{c['endpoint_distance'].get('50', float('nan')):.3e}",
+              flush=True)
+        assert f["f32"]["converged"] > 0 and f["f64"]["converged"] > 0, f
+    r = run_tool("reconcile_stats_torch", "--hypotheses",
+                 str(H_ROUND))["reconcile_stats"]
+    for key in ("trunpaths_off", "trunpaths_on"):
+        g = r[key]
+        print(f"reconcile_stats H={H_ROUND} {key}: converged "
+              f"{g['converged']} real {g['real']} inf {g['inf']} pruned "
+              f"{g['pruned']} steps {g['steps']}, K1 launches "
+              f"{g['launches']}, {g['track_ms']:.3f} ms", flush=True)
+        assert g["launches"] > 0 and g["converged"] > 0, g
+    a = run_tool("accuracy_sweep_torch", "--retries", "1", "--exhaustive",
+                 "0")["accuracy_sweep"]
+    print(f"accuracy_sweep: {a['found']}/{a['views']} views recovered "
+          f"({a['within_gt']} within GT), attempts {a['attempts']}, first "
+          f"round ms {a['first_round_ms']}", flush=True)
+    assert a["views"] == 3 and a["found"] == 3, a
+    f = run_tool("roofline_torch", "--step-us", repr(step_us), "--paths",
+                 str(paths))["roofline"]
+    print(f"roofline: phase 10's step {step_us:.3f} us over {paths} paths, "
+          f"{f['flops_per_path_step']:.0f} FLOP per path-step, "
+          f"{f['gflops']:.3f} GFLOP/s, {100 * f['bound_share']:.3f} % of "
+          f"its bound ({f['bound_by']})", flush=True)
+    assert f["bound_by"] == "operations" and f["bound_share"] < 0.25, f
+
+
 def ransac_target(view):
     """View ``view``'s first hypothesis's target parameters (seed SEED),
     (1, P+1) complex64."""
@@ -1383,7 +1469,8 @@ def main() -> int:
     x10, tgt10 = inputs(10)
     m10 = x10.shape[0]
     for name, hc_v in variants.items():
-        exact = name in EVAL_BUILDS
+        # Phase 9's builds and the tiled handoff must agree bit for bit.
+        exact = name in EVAL_BUILDS or name == "cph128"
         kv = fused.make_track_fn(problem, hc_v)
         pv = fused.make_plain_track_fn(problem, hc_v)
         c_v = kv.constants
@@ -1404,6 +1491,21 @@ def main() -> int:
         assert nf10 <= max(1, int(FLIP_FRAC * m10)), nf10
         assert rel10 < REL_TOL, rel10
         assert not exact or same10 == m10, same10
+        if hc_v.tile > 1 and hc_v.predictor_handoff:
+            # One launch pads the last tile (3,070 = 23 x 128 + 126) with
+            # an active copy of path 0, as the JAX package's one launch;
+            # the segmented tracker's launches have no pad.
+            assert fused.handoff_pad(hc_v, m10) == 1
+            rs10 = segmented.make_segmented_track_fn(problem, hc_v)(
+                x10, tgt10).track
+            rps10 = segmented.make_segmented_track_fn(
+                problem, hc_v, plain=True)(x10, tgt10).track
+            torch.cuda.synchronize()
+            segs10 = identical(rs10, rps10)
+            print(f"{name} segmented vs track_plain over the same segments "
+                  f"on {m10} paths: bit-identical paths {segs10}/{m10}, flag "
+                  f"flips {flips(rs10, rps10)}", flush=True)
+            assert segs10 == m10 and flips(rs10, rps10) == 0, segs10
 
         # RKJ and CJR=1 converge worse: found_pose is printed, not asserted.
         cfg_v = dataclasses.replace(cfg, hc=hc_v)
@@ -1448,6 +1550,20 @@ def main() -> int:
                             launches=launches_v, max_abs_err=abs_v, ms=seg_ms,
                             plain_ms=plain_ms, plain_paths=n, bound_ms=bound_v,
                             bound_by=by_v))
+        if hc_v.tile > 1 and hc_v.predictor_handoff:
+            # The tiled kernel in one launch on the round's paths (30,700:
+            # its last tile padded), and its own occupancy.
+            one_v = sorted(timed(lambda: kv(x0, tgt))[1] for _ in range(3))[1]
+            tile_bps = _kernels.hc_track_blocks_per_sm(hc_v, dev)
+            print(f"{name}: one launch on {n} paths {one_v:.3f} ms (median "
+                  f"of 3); hc_track_tile_kernel blocks_per_sm {tile_bps}, "
+                  f"tile {hc_v.tile}, {-(-n // hc_v.tile)} tiles; ptxas "
+                  + "; ".join(ptxas_lines(_kernels.build_logs.get(
+                      _kernels.hc_track_label(hc_v), "")).get(
+                          "hc_track_tile_kernel", [])), flush=True)
+            kernels[-1].update(ms_one_launch=one_v, tile=hc_v.tile,
+                               kernel="hc_track_tile_kernel",
+                               blocks_per_sm=tile_bps)
 
         if name == "cjr2":
             engine_va = eng.TrifocalPoseEngine(dataclasses.replace(
@@ -1501,6 +1617,7 @@ def main() -> int:
         return (four - one) / 3
 
     t_phases = time.perf_counter()
+    steps_us = {}   # program -> (the step's µs per iteration, paths)
     for program, hc_p, k_round, rr_p in (("reduced", hc, k_reduced, rr),
                                          ("schedule", hc_s, k_schedule,
                                           rr_s)):
@@ -1577,6 +1694,7 @@ def main() -> int:
                             "fresh state, timed as the JAX tool's run_step"}
                    if p == "step" else {})))
         step_ms = next(r["ms"] for r in rows if r["phase"] == "step")
+        steps_us[program] = (step_ms * 1e3, B)
         longest = int(rr_p.num_steps.max())
         print(f"phase {program} step: {step_ms:.3f} ms per step on {B} fresh "
               f"paths; phase 4/5's segmented tracker {seg_ms:.3f} ms over the "
@@ -1613,6 +1731,11 @@ def main() -> int:
     k_reduced.update(sharding(cfg, engine, view, rr, ra, streams, inputs,
                               round_line, eng, _kernels))
     print(f"phase 14: {time.perf_counter() - t_shard:.1f} s", flush=True)
+
+    # 15. The measurement tools on the card, in subprocesses.
+    t_tools = time.perf_counter()
+    tools_phase(*steps_us["reduced"])
+    print(f"phase 15: {time.perf_counter() - t_tools:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         **dict(name="hc_track", route="cuda", source=SOURCE, library_ms=None,

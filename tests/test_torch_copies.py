@@ -1,6 +1,6 @@
 """The port's own copies of the JAX package's host modules against the
 originals: configuration, data IO, host evaluation, the symbolic solve
-plans and monodromy's host helpers.  They must agree exactly: field for
+plans, monodromy's host helpers and the reference's glibc sampler.  They must agree exactly: field for
 field, bit for bit."""
 
 import dataclasses
@@ -11,6 +11,9 @@ import pytest
 
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.models import (
     monodromy as jmonodromy,
+)
+from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
+    ransac as jransac,
 )
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import reduce as jredu
 from trifocal_pose_estimation_using_improved_gpuhc_tpu.ops import (
@@ -29,6 +32,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.models import (
     monodromy,
     trifocal,
 )
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import ransac
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import reduce as redu
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     schedule as sched,
@@ -365,3 +369,29 @@ def test_write_start_system_byte_equal(tmp_path):
     for name in ("start_params.txt", "start_sols.txt"):
         assert ((tmp_path / "ours" / name).read_bytes()
                 == (tmp_path / "jax" / name).read_bytes()), name
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 12345, 2 ** 32 - 1])
+def test_glibc_rand_equal(seed):
+    """The same 2,000 outputs; seeds 0 and 1 give glibc's default
+    sequence, whose first values are pinned."""
+    ours, theirs = ransac.GlibcRand(seed), jransac.GlibcRand(seed)
+    got = [ours.rand() for _ in range(2000)]
+    assert got == [theirs.rand() for _ in range(2000)]
+    if seed in (0, 1):
+        assert got[:5] == [1804289383, 846930886, 1681692777, 1714636915,
+                           1957747793]
+
+
+@pytest.mark.parametrize("seed,n_edgels,n_hyp", [(0, 5000, 100),
+                                                 (7, 5000, 300),
+                                                 (3, 3, 60), (11, 4, 60)])
+def test_reference_sampler_equal(seed, n_edgels, n_hyp):
+    """Equal samples; with few edgels the reference's duplicate check lets
+    e0 == e2 through (never e0 == e1 or e1 == e2)."""
+    ours = ransac.sample_edgel_triplets_reference(seed, n_edgels, n_hyp)
+    theirs = jransac.sample_edgel_triplets_reference(seed, n_edgels, n_hyp)
+    assert ours.dtype == theirs.dtype and np.array_equal(ours, theirs)
+    assert (ours[:, 0] != ours[:, 1]).all() and (ours[:, 1] != ours[:, 2]).all()
+    if n_edgels < 5:
+        assert (ours[:, 0] == ours[:, 2]).any()

@@ -13,7 +13,12 @@ variant's build (the step variants, the RK stages' 2-term split of
 "split3_rk2" alone and with each replaying variant, the basis "abc"), and
 for segmented tracking against one launch (under the predictor handoff,
 which restarts at every launch, against track_plain over the same
-segments).  The kernel's solve and replay are also held alone
+segments).  The handoff decided per tile (HCConfig.tile 1, 32 and 128:
+the per-path kernel at 1, hc_track_tile_kernel above) equals
+track_plain's tile rule, with the elimination it keeps (the tile's last
+corrector iteration's), bit for bit in one launch (an active copy of path
+0 pads the last tile) and segmented.  The kernel's solve and replay are
+also held alone
 (hc_solve_replay) to their plain twins; the default build's ptxas line and
 blocks per SM are pinned; eval_structure "gathered" and "merged" launch the
 default build.  The grid is persistent (warps take paths from a counter):
@@ -280,7 +285,34 @@ _VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
              "cjr2-split2": dict(corrector_jacobian_reuse=2,
                                  eval_precision="split3_rk2"),
              "rk2-abc-split2": dict(predictor="rk2", pair_coef_basis="abc",
-                                    eval_precision="split3_rk2")}
+                                    eval_precision="split3_rk2"),
+             # The tiled kernel with the corrector's replays.
+             "cjr2-cph-tile128": dict(corrector_jacobian_reuse=2,
+                                      predictor_handoff=True, tile=128)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [1, 32, 128])
+@pytest.mark.parametrize("driver", ["one_launch", "segmented"])
+def test_cuda_tiled_handoff_matches_track_plain(setup, tile, driver):
+    """The handoff decided per tile of ``tile`` paths, bit for bit with
+    track_plain on 2 x the roots (614 paths: the last tile of 32 or 128 is
+    partial), in one launch (padded with an active copy of path 0) and
+    segmented (no pad, a launch per segment over the active prefix)."""
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, predictor_handoff=True, tile=tile)
+    before = _kernels.hc_track.launches
+    if driver == "one_launch":
+        k = fused.make_track_fn(port, hc)(x0, tgt)
+        assert _kernels.hc_track.launches == before + 1
+        p = fused.make_plain_track_fn(port, hc)(x0, tgt)
+    else:
+        k = segmented.make_segmented_track_fn(port, hc)(x0, tgt).track
+        assert _kernels.hc_track.launches > before + 1
+        p = segmented.make_segmented_track_fn(port, hc, plain=True)(
+            x0, tgt).track
+    torch.cuda.synchronize()
+    _assert_same(k, p)
 
 
 @pytest.mark.gpu

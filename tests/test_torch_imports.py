@@ -35,6 +35,7 @@ _MODULES = [
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.data_io",
     "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.evaluation",
+    "trifocal_pose_estimation_using_improved_gpuhc_torch.utils.tooling",
 ]
 
 
@@ -95,7 +96,11 @@ def test_microbench_torch_names_no_jax_module():
 
 @pytest.mark.parametrize("tool", ["profile_torch_round.py",
                                   "time_torch_tracker.py",
-                                  "scaling_torch.py"])
+                                  "scaling_torch.py",
+                                  "f64_reconcile_torch.py",
+                                  "reconcile_stats_torch.py",
+                                  "accuracy_sweep_torch.py",
+                                  "roofline_torch.py"])
 def test_torch_tools_name_no_jax_module(tool):
     """The other tools/*_torch*.py import the port inside main, so they
     are read, not run."""

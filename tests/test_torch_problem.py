@@ -157,17 +157,17 @@ def test_shipped_config_accepted(cfg):
         config.check_shipped(bad)
 
 
-def test_handoff_needs_tile_one(cfg):
-    """The JAX kernel decides the handoff per tile of hc.tile paths, the
-    port per path: only tile 1 is the same function (shown on the JAX
-    kernel in tests/test_torch_variants_handoff.py)."""
-    for tile in (128, 32):
-        bad = dataclasses.replace(cfg, hc=dataclasses.replace(
-            cfg.hc, predictor_handoff=True, tile=tile))
-        with pytest.raises(ValueError, match="per tile"):
-            config.check_shipped(bad)
-    config.check_shipped(dataclasses.replace(cfg, hc=dataclasses.replace(
-        cfg.hc, predictor_handoff=True, tile=1)))
+@pytest.mark.parametrize("tile", [1, 32, 128])
+def test_handoff_accepts_any_tile(cfg, tile):
+    """The handoff is decided per tile of hc.tile paths, as the JAX kernel
+    decides it, at any tile of at least one path; a tile of 0 paths and
+    the handoff with rk_jacobian_reuse are refused at every tile."""
+    hc = dataclasses.replace(cfg.hc, predictor_handoff=True, tile=tile)
+    config.check_shipped(dataclasses.replace(cfg, hc=hc))
+    for bad in (dict(tile=0), dict(rk_jacobian_reuse=True)):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            config.check_shipped(dataclasses.replace(
+                cfg, hc=dataclasses.replace(hc, **bad)))
 
 
 _EVAL_VARIANTS = [dict(eval_precision="split3_rk2"),

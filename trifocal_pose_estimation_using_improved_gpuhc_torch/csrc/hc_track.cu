@@ -26,8 +26,10 @@
 //  * HC_CJR, HC_CPH, HC_RKJ: the users of its _resolve_rhs /
 //    _reduce_resolve_rhs, which replay a kept elimination on a new rhs --
 //    corrector iterations from the cjr-th on (modified Newton), RK stage 1
-//    after a step that did not roll back (the corrector -> predictor
-//    handoff), RK stages 2-4 (frozen-Jacobian stages, schedule program);
+//    after a step in which no path of its tile rolled back (the corrector
+//    -> predictor handoff; a tile of one path in hc_track_kernel, of
+//    HCConfig.tile paths in hc_track_tile_kernel, taken at launch), RK
+//    stages 2-4 (frozen-Jacobian stages, schedule program);
 //  * HC_SPLIT2: eval_precision "split3_rk2", where the JAX kernel's RK-stage
 //    evaluations take every constant matmul's input as two bf16 terms
 //    h + l1 (about 16 significant bits; _sdot2/_kdot2 there): here the
@@ -572,6 +574,192 @@ __device__ __forceinline__ float2 axpy(float2 x, float a, float2 k) {
   return make_float2(x.x + a * k.x, x.y + a * k.y);
 }
 
+// A path's tracking state between steps: x, x_last and its 8 flags.
+struct PathState {
+  float2 xv, xlv;
+  float t, dt, succ, ez, chk, inf, prn, nst;
+};
+
+__device__ __forceinline__ PathState load_path(const float2* __restrict__ x,
+                                               const float2* __restrict__ xl,
+                                               const float* __restrict__ flags,
+                                               int path, int lane) {
+  const float2 zero = make_float2(0.f, 0.f);
+  const float* fl = flags + (size_t)path * 8;
+  return PathState{lane < NV ? x[(size_t)path * NV + lane] : zero,
+                   lane < NV ? xl[(size_t)path * NV + lane] : zero,
+                   fl[0], fl[1], fl[2], fl[3], fl[4], fl[5], fl[6], fl[7]};
+}
+
+__device__ __forceinline__ void store_path(float2* __restrict__ x,
+                                           float2* __restrict__ xl,
+                                           float* __restrict__ flags,
+                                           const PathState& ps, int path,
+                                           int lane) {
+  if (lane < NV) {
+    x[(size_t)path * NV + lane] = ps.xv;
+    xl[(size_t)path * NV + lane] = ps.xlv;
+  }
+  if (lane == 0) {
+    float* fl = flags + (size_t)path * 8;
+    fl[0] = ps.t; fl[1] = ps.dt; fl[2] = ps.succ; fl[3] = ps.ez;
+    fl[4] = ps.chk; fl[5] = ps.inf; fl[6] = ps.prn; fl[7] = ps.nst;
+  }
+}
+
+// The path's pair coefficients E, F, G, lane q and q + 32 of each.
+__device__ __forceinline__ void load_coefs(const float2* __restrict__ efg,
+                                           int q_n, int path, int lane,
+                                           float2 (&e)[2], float2 (&f)[2],
+                                           float2 (&g)[2]) {
+  const float2 zero = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int q = lane + 32 * j;
+    const float2* base = efg + (size_t)path * 3 * q_n;
+    e[j] = q < q_n ? base[q] : zero;
+    f[j] = q < q_n ? base[q_n + q] : zero;
+    g[j] = q < q_n ? base[2 * q_n + q] : zero;
+  }
+}
+
+__device__ __forceinline__ bool finished(const PathState& ps,
+                                         const Params& prm) {
+  return ps.t >= 1.0f || 1.0f - ps.t <= prm.t_eps || ps.inf > 0.5f ||
+         ps.prn > 0.5f;
+}
+
+// One HC step of the path in `ps` with pair coefficients e, f, g.
+// Returns false, having taken no step, for a path that is finished or is
+// pruned now; otherwise sets `fail` (the corrector rolled the step back)
+// and `iters` (the corrector iterations it ran).
+// Under CPH with `handoff`, RK stage 1 replays the elimination that s and
+// keep hold (the previous step's last full corrector solve).
+__device__ __forceinline__ bool hc_step(WarpSmem& s, float2* keep,
+                                        const int* __restrict__ plan,
+                                        const Params& prm,
+                                        const float2 (&e)[2],
+                                        const float2 (&f)[2],
+                                        const float2 (&g)[2], PathState& ps,
+                                        bool handoff, bool& fail,
+                                        int& iters, bool is_depth, int q_n,
+                                        int lane) {
+  // RK stage k >= 2 at point xp: a full solve, or (RKJ) stage 1's
+  // elimination replayed on the -Ht there.  Every RK-stage evaluation
+  // runs under the split of SPLIT2.
+  auto stage = [&](float2 xp) {
+    set_point<SPLIT2>(s, xp, lane);
+    if constexpr (RKJ) {
+      assemble_rhs<SPLIT2>(s, plan, false, lane);
+      return replay(s, plan, keep, lane);
+    } else {
+      assemble<SPLIT2>(s, plan, false, lane);
+      return solve<REPLAY>(s, plan, keep, lane);
+    }
+  };
+
+  if (finished(ps, prm)) return false;
+  if (fabsf(1.0f - ps.t) <= prm.ez_factor) ps.ez = 1.0f;
+  if (prm.truncate) {
+    // min over the depths <= 0, where a NaN depth makes the min NaN.
+    const bool any_nan = __any_sync(FULL, is_depth && ps.xv.x != ps.xv.x);
+    const bool any_bad = __any_sync(FULL, is_depth && ps.xv.x <= 0.0f);
+    if (ps.chk > 0.5f && ps.t > 0.0f) ps.chk = (any_bad && !any_nan) ? 1.0f : 0.0f;
+    if (ps.t > 0.95f && ps.chk > 0.5f) {
+      ps.prn = 1.0f;
+      return false;
+    }
+  }
+  const float t = ps.t, dt = ps.dt;
+  const float2 xv = ps.xv;
+  const float dtc = ps.ez > 0.5f ? fminf(dt, fabsf(1.0f - t)) : fminf(dt, fabsf(0.95f - t));
+  const float half = 0.5f * dtc;
+  const float tb = t + half;
+  const float tc = tb + half;
+
+  // Predictor: RK4, or Kutta's rule (ORDER 3) or the midpoint rule (2).
+  fill(s, e, f, g, t, true, q_n, lane);
+  set_point<SPLIT2>(s, xv, lane);
+  float2 k1;
+  if (CPH && handoff) {
+    assemble_rhs<SPLIT2>(s, plan, false, lane);
+    k1 = replay(s, plan, keep, lane);
+  } else {
+    assemble<SPLIT2>(s, plan, false, lane);
+    k1 = solve<REPLAY>(s, plan, keep, lane);
+  }
+  fill(s, e, f, g, tb, true, q_n, lane);
+  const float2 k2 = stage(axpy(xv, half, k1));
+  float2 cw;
+  if constexpr (ORDER == 2) {
+    cw = axpy(xv, dtc, k2);
+  } else if constexpr (ORDER == 3) {
+    fill(s, e, f, g, tc, true, q_n, lane);
+    const float2 k3 = stage(make_float2(xv.x - dtc * k1.x + 2.0f * dtc * k2.x,
+                                        xv.y - dtc * k1.y + 2.0f * dtc * k2.y));
+    const float sixth = dtc / 6.0f;
+    cw = make_float2(xv.x + sixth * (k1.x + 4.0f * k2.x + k3.x),
+                     xv.y + sixth * (k1.y + 4.0f * k2.y + k3.y));
+  } else {
+    const float2 k3 = stage(axpy(xv, half, k2));
+    fill(s, e, f, g, tc, true, q_n, lane);
+    const float2 k4 = stage(axpy(xv, dtc, k3));
+    const float sixth = dtc / 6.0f;
+    cw = make_float2(xv.x + sixth * (k1.x + 2.0f * (k2.x + k3.x) + k4.x),
+                     xv.y + sixth * (k1.y + 2.0f * (k2.y + k3.y) + k4.y));
+  }
+
+  // Newton corrector at frozen t_c; under CJR, iterations from the
+  // cjr-th on replay the last full iteration's elimination.
+  fill(s, e, f, g, tc, false, q_n, lane);
+  bool ok = false, diverged = false;
+  for (int ci = 0; ci < prm.mcs; ++ci) {
+    iters = ci + 1;
+    set_point(s, cw, lane);
+    float2 dx;
+    if (CJR && ci >= prm.cjr) {
+      assemble_rhs(s, plan, true, lane);
+      dx = replay(s, plan, keep, lane);
+    } else {
+      assemble(s, plan, true, lane);
+      dx = solve<REPLAY>(s, plan, keep, lane);
+    }
+    cw = make_float2(cw.x - dx.x, cw.y - dx.y);
+    const float sq_dx = warp_sum(dx.x * dx.x + dx.y * dx.y);
+    const float sq_x = warp_sum(cw.x * cw.x + cw.y * cw.y);
+    ok = sq_dx < prm.tol_sq * sq_x;
+    diverged = sq_x > prm.inf_sq;
+    if (ok || diverged) break;
+  }
+
+  // Outcome bookkeeping.
+  const bool good = !diverged && ok;
+  fail = !diverged && !ok;
+  if (good || diverged) {
+    ps.xv = cw;
+    ps.t = tc;
+  } else {
+    ps.xv = ps.xlv;
+  }
+  if (good) ps.xlv = cw;
+  const float succ2 = good ? ps.succ + 1.0f : (fail ? 0.0f : ps.succ);
+  const bool bump = good && succ2 >= (float)prm.steps_inc;
+  ps.dt = fail ? dtc * 0.5f : (bump ? dtc * 2.0f : dtc);
+  ps.succ = bump ? 0.0f : succ2;
+  if (diverged) ps.inf = 1.0f;
+  ps.nst += 1.0f;
+  return true;
+}
+
+// Whether this lane of the plan's 8 depth positions holds a depth.
+__device__ __forceinline__ bool depth_lane(const int* __restrict__ plan,
+                                           int lane) {
+  bool is_depth = false;
+  const int* depth = plan + plan[H_DEPTH];
+  for (int d = 0; d < 8; ++d) is_depth |= depth[d] == lane;
+  return is_depth;
+}
+
 __global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
 hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
                 float* __restrict__ flags, const float2* __restrict__ efg,
@@ -583,10 +771,7 @@ hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
   float2* keep = nullptr;
   if constexpr (REPLAY) keep = keep_area(warp);
   const int q_n = plan[H_Q];
-  bool is_depth = false;
-  const int* depth = plan + plan[H_DEPTH];
-  for (int d = 0; d < 8; ++d) is_depth |= depth[d] == lane;
-  const float2 zero = make_float2(0.f, 0.f);
+  const bool is_depth = depth_lane(plan, lane);
 
   for (;;) {
     // The next path of the queue.
@@ -596,139 +781,182 @@ hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
     if (path >= n_paths) break;
 
     float2 e[2], f[2], g[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int q = lane + 32 * j;
-      const float2* base = efg + (size_t)path * 3 * q_n;
-      e[j] = q < q_n ? base[q] : zero;
-      f[j] = q < q_n ? base[q_n + q] : zero;
-      g[j] = q < q_n ? base[2 * q_n + q] : zero;
-    }
-    float2 xv = lane < NV ? x[(size_t)path * NV + lane] : zero;
-    float2 xlv = lane < NV ? xl[(size_t)path * NV + lane] : zero;
-    float* fl = flags + (size_t)path * 8;
-    float t = fl[0], dt = fl[1], succ = fl[2], ez = fl[3], chk = fl[4];
-    float inf = fl[5], prn = fl[6], nst = fl[7];
-
+    load_coefs(efg, q_n, path, lane, e, f, g);
+    PathState ps = load_path(x, xl, flags, path, lane);
     // CPH: whether s holds the last step's corrector elimination.  Nothing
     // is kept across paths or launches, as the JAX kernel resets its flag
-    // at each launch.
+    // at each launch.  This is the JAX kernel's handoff at a tile of one
+    // path; hc_track_tile_kernel decides it per tile.
     bool handoff = false;
-    // RK stage k >= 2 at point xp: a full solve, or (RKJ) stage 1's
-    // elimination replayed on the -Ht there.  Every RK-stage evaluation
-    // runs under the split of SPLIT2.
-    auto stage = [&](float2 xp) {
-      set_point<SPLIT2>(s, xp, lane);
-      if constexpr (RKJ) {
-        assemble_rhs<SPLIT2>(s, plan, false, lane);
-        return replay(s, plan, keep, lane);
-      } else {
-        assemble<SPLIT2>(s, plan, false, lane);
-        return solve<REPLAY>(s, plan, keep, lane);
-      }
-    };
-
     for (int it = 0; it < prm.niter; ++it) {
-      const bool conv = t >= 1.0f || 1.0f - t <= prm.t_eps;
-      if (conv || inf > 0.5f || prn > 0.5f) break;
-      if (fabsf(1.0f - t) <= prm.ez_factor) ez = 1.0f;
-      if (prm.truncate) {
-        // min over the depths <= 0, where a NaN depth makes the min NaN.
-        const bool any_nan = __any_sync(FULL, is_depth && xv.x != xv.x);
-        const bool any_bad = __any_sync(FULL, is_depth && xv.x <= 0.0f);
-        if (chk > 0.5f && t > 0.0f) chk = (any_bad && !any_nan) ? 1.0f : 0.0f;
-        if (t > 0.95f && chk > 0.5f) {
-          prn = 1.0f;
-          break;
-        }
-      }
-      const float dtc = ez > 0.5f ? fminf(dt, fabsf(1.0f - t)) : fminf(dt, fabsf(0.95f - t));
-      const float half = 0.5f * dtc;
-      const float tb = t + half;
-      const float tc = tb + half;
-
-      // Predictor: RK4, or Kutta's rule (ORDER 3) or the midpoint rule (2).
-      fill(s, e, f, g, t, true, q_n, lane);
-      set_point<SPLIT2>(s, xv, lane);
-      float2 k1;
-      if (CPH && handoff) {
-        assemble_rhs<SPLIT2>(s, plan, false, lane);
-        k1 = replay(s, plan, keep, lane);
-      } else {
-        assemble<SPLIT2>(s, plan, false, lane);
-        k1 = solve<REPLAY>(s, plan, keep, lane);
-      }
-      fill(s, e, f, g, tb, true, q_n, lane);
-      const float2 k2 = stage(axpy(xv, half, k1));
-      float2 cw;
-      if constexpr (ORDER == 2) {
-        cw = axpy(xv, dtc, k2);
-      } else if constexpr (ORDER == 3) {
-        fill(s, e, f, g, tc, true, q_n, lane);
-        const float2 k3 = stage(make_float2(xv.x - dtc * k1.x + 2.0f * dtc * k2.x,
-                                            xv.y - dtc * k1.y + 2.0f * dtc * k2.y));
-        const float sixth = dtc / 6.0f;
-        cw = make_float2(xv.x + sixth * (k1.x + 4.0f * k2.x + k3.x),
-                         xv.y + sixth * (k1.y + 4.0f * k2.y + k3.y));
-      } else {
-        const float2 k3 = stage(axpy(xv, half, k2));
-        fill(s, e, f, g, tc, true, q_n, lane);
-        const float2 k4 = stage(axpy(xv, dtc, k3));
-        const float sixth = dtc / 6.0f;
-        cw = make_float2(xv.x + sixth * (k1.x + 2.0f * (k2.x + k3.x) + k4.x),
-                         xv.y + sixth * (k1.y + 2.0f * (k2.y + k3.y) + k4.y));
-      }
-
-      // Newton corrector at frozen t_c; under CJR, iterations from the
-      // cjr-th on replay the last full iteration's elimination.
-      fill(s, e, f, g, tc, false, q_n, lane);
-      bool ok = false, diverged = false;
-      for (int ci = 0; ci < prm.mcs; ++ci) {
-        set_point(s, cw, lane);
-        float2 dx;
-        if (CJR && ci >= prm.cjr) {
-          assemble_rhs(s, plan, true, lane);
-          dx = replay(s, plan, keep, lane);
-        } else {
-          assemble(s, plan, true, lane);
-          dx = solve<REPLAY>(s, plan, keep, lane);
-        }
-        cw = make_float2(cw.x - dx.x, cw.y - dx.y);
-        const float sq_dx = warp_sum(dx.x * dx.x + dx.y * dx.y);
-        const float sq_x = warp_sum(cw.x * cw.x + cw.y * cw.y);
-        ok = sq_dx < prm.tol_sq * sq_x;
-        diverged = sq_x > prm.inf_sq;
-        if (ok || diverged) break;
-      }
-
-      // Outcome bookkeeping.
-      const bool good = !diverged && ok, fail = !diverged && !ok;
-      if (good || diverged) {
-        xv = cw;
-        t = tc;
-      } else {
-        xv = xlv;
-      }
-      if (good) xlv = cw;
-      const float succ2 = good ? succ + 1.0f : (fail ? 0.0f : succ);
-      const bool bump = good && succ2 >= (float)prm.steps_inc;
-      dt = fail ? dtc * 0.5f : (bump ? dtc * 2.0f : dtc);
-      succ = bump ? 0.0f : succ2;
-      if (diverged) inf = 1.0f;
-      nst += 1.0f;
+      bool fail = false;
+      int iters = 0;
+      if (!hc_step(s, keep, plan, prm, e, f, g, ps, handoff, fail, iters,
+                   is_depth, q_n, lane))
+        break;
       if constexpr (CPH) handoff = !fail;  // no roll-back
     }
+    store_path(x, xl, flags, ps, path, lane);
+  }
+}
 
-    if (lane < NV) {
-      x[(size_t)path * NV + lane] = xv;
-      xl[(size_t)path * NV + lane] = xlv;
-    }
-    if (lane == 0) {
-      fl[0] = t; fl[1] = dt; fl[2] = succ; fl[3] = ez;
-      fl[4] = chk; fl[5] = inf; fl[6] = prn; fl[7] = nst;
+#if HC_CPH
+// The last corrector elimination of a path (the system with its pivot
+// rows, the pivots, the multipliers) to and from its area in device
+// memory, for the tiled handoff.
+__device__ __forceinline__ void save_elimination(WarpSmem& s,
+                                                 const float2* keep,
+                                                 float2* __restrict__ km,
+                                                 int* __restrict__ kp,
+                                                 float2* __restrict__ kf,
+                                                 int lane) {
+  __syncwarp();
+  for (int i = lane; i < NV * W; i += 32) km[i] = s.m[i];
+  kp[lane] = s.piv[lane];
+  for (int i = lane; i < FSLOTS; i += 32) kf[i] = keep[i];
+}
+
+__device__ __forceinline__ void load_elimination(WarpSmem& s, float2* keep,
+                                                 const float2* __restrict__ km,
+                                                 const int* __restrict__ kp,
+                                                 const float2* __restrict__ kf,
+                                                 int lane) {
+  for (int i = lane; i < NV * W; i += 32) s.m[i] = km[i];
+  s.piv[lane] = kp[lane];
+  for (int i = lane; i < FSLOTS; i += 32) keep[i] = kf[i];
+  __syncwarp();
+}
+
+// A corrector iteration's full solve at the path's point and t, its update
+// unused: the elimination that s and keep then hold is the one the JAX
+// kernel keeps for a path whose corrector stopped before its tile's last
+// full iteration (that lane, done, is factored again where it stands).
+__device__ __forceinline__ void refactor(WarpSmem& s, float2* keep,
+                                         const int* __restrict__ plan,
+                                         const float2 (&e)[2],
+                                         const float2 (&f)[2],
+                                         const float2 (&g)[2],
+                                         const PathState& ps, int q_n,
+                                         int lane) {
+  fill(s, e, f, g, ps.t, false, q_n, lane);
+  set_point(s, ps.xv, lane);
+  assemble(s, plan, true, lane);
+  solve<REPLAY>(s, plan, keep, lane);
+}
+
+// The handoff decided per tile of `tile` consecutive paths, as the JAX
+// kernel decides it (its `cont[1] = max(failf) < 0.5`): RK stage 1 of a
+// step replays only if no path of the tile rolled back in the step before,
+// and never at a launch's first step.  One block per tile at a time
+// (blocks take tiles from the counter *next_tile): the tile's paths step
+// in lockstep, each warp taking the tile's next path of the step from a
+// counter in shared memory, and the block's barrier ends the step with
+// the tile's "any path failed" word and its most corrector iterations m.
+// A path's tracking state lives in x, xl, flags between steps, and its
+// last corrector elimination in km, kp, kf (NV * W + 32 + FSLOTS words per
+// path; its corrector iterations in kept_it): a tile's systems do not fit
+// in shared memory.  Each path runs hc_step, the arithmetic of
+// hc_track_kernel.  What differs from it is the handoff's validity and
+// the elimination kept: the JAX kernel runs a tile's corrector until
+// every lane is done and saves each full iteration's elimination for
+// every lane, so a path that stopped before the tile's last full
+// iteration (the m-th, under CJR no later than the cjr-th) keeps the one
+// at its final point, which a second pass after the barrier computes
+// (refactor) when the handoff holds.
+// What bounds it beyond hc_track_kernel's latency: fewer resident warps
+// (a tile is one block of WARPS warps, so a batch fills batch / tile
+// blocks, and each block waits at every step's barrier for its slowest
+// path) and the kept elimination's trip through device memory, 10,624
+// bytes out after each step that keeps it and in before each replay.
+__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+hc_track_tile_kernel(float2* __restrict__ x, float2* __restrict__ xl,
+                     float* __restrict__ flags, const float2* __restrict__ efg,
+                     const int* __restrict__ plan, int n_paths, Params prm,
+                     int tile, float2* __restrict__ kept_m,
+                     int* __restrict__ kept_piv, float2* __restrict__ kept_f,
+                     int* __restrict__ kept_it, int* __restrict__ next_tile) {
+  __shared__ WarpSmem smem[WARPS];
+  __shared__ int tile_first, next, failed, live, most;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  WarpSmem& s = smem[warp];
+  float2* keep = keep_area(warp);
+  const int q_n = plan[H_Q];
+  const bool is_depth = depth_lane(plan, lane);
+
+  for (;;) {
+    if (threadIdx.x == 0) tile_first = atomicAdd(next_tile, 1) * tile;
+    __syncthreads();
+    const int first = tile_first;
+    __syncthreads();
+    if (first >= n_paths) break;
+    const int count = min(tile, n_paths - first);
+    bool handoff = false;
+    for (int it = 0; it < prm.niter; ++it) {
+      if (threadIdx.x == 0) next = failed = live = most = 0;
+      __syncthreads();
+      for (;;) {
+        int i = 0;
+        if (lane == 0) i = atomicAdd(&next, 1);
+        i = __shfl_sync(FULL, i, 0);
+        if (i >= count) break;
+        const int path = first + i;
+        PathState ps = load_path(x, xl, flags, path, lane);
+        if (finished(ps, prm)) continue;  // blocks nothing
+        float2 e[2], f[2], g[2];
+        load_coefs(efg, q_n, path, lane, e, f, g);
+        float2* km = kept_m + (size_t)path * NV * W;
+        int* kp = kept_piv + (size_t)path * 32;
+        float2* kf = kept_f + (size_t)path * FSLOTS;
+        if (handoff) load_elimination(s, keep, km, kp, kf, lane);
+        bool fail = false;
+        int iters = 0;
+        const bool stepped = hc_step(s, keep, plan, prm, e, f, g, ps,
+                                     handoff, fail, iters, is_depth, q_n,
+                                     lane);
+        const bool goes_on = !finished(ps, prm);
+        if (stepped && !fail && goes_on)
+          save_elimination(s, keep, km, kp, kf, lane);
+        store_path(x, xl, flags, ps, path, lane);
+        if (lane == 0) {
+          kept_it[path] = stepped ? iters : 0;
+          if (fail) atomicOr(&failed, 1);
+          if (goes_on) atomicOr(&live, 1);
+          if (stepped) atomicMax(&most, iters);
+        }
+      }
+      __syncthreads();
+      const bool any_failed = failed != 0, any_live = live != 0;
+      const int last = min(most, CJR ? prm.cjr : prm.mcs);
+      __syncthreads();
+      handoff = !any_failed;
+      if (!any_live) break;
+      if (!handoff || last < 2) continue;
+      // The tile's last full corrector iteration at each final point of a
+      // path that stopped before it (fused.handoff_refactor).
+      if (threadIdx.x == 0) next = 0;
+      __syncthreads();
+      for (;;) {
+        int i = 0;
+        if (lane == 0) i = atomicAdd(&next, 1);
+        i = __shfl_sync(FULL, i, 0);
+        if (i >= count) break;
+        const int path = first + i;
+        const int c = kept_it[path];
+        if (c == 0 || c >= last) continue;
+        const PathState ps = load_path(x, xl, flags, path, lane);
+        if (finished(ps, prm)) continue;
+        float2 e[2], f[2], g[2];
+        load_coefs(efg, q_n, path, lane, e, f, g);
+        refactor(s, keep, plan, e, f, g, ps, q_n, lane);
+        save_elimination(s, keep, kept_m + (size_t)path * NV * W,
+                         kept_piv + (size_t)path * 32,
+                         kept_f + (size_t)path * FSLOTS, lane);
+      }
+      __syncthreads();
     }
   }
 }
+#endif
 
 // The solve and its replay alone, one warp per system: solve the augmented
 // system m[i] (30 rows x 32 columns, rhs in column 30), keeping the
@@ -1001,54 +1229,85 @@ cudaError_t phase_launch(const void* x, const void* efg, const void* plan,
   X(PH_EVASM) X(PH_ELIM) X(PH_ELIMFAM) X(PH_ELIMTAIL) X(PH_BACK)           \
   X(PH_EVSOLVE) X(PH_REPLAY)
 
-// The tracker's dynamic shared memory (a replaying build's multipliers),
-// allowed above the default limit, and the largest shared-memory carveout.
-cudaError_t configure_track(int* smem) {
+// A tracker kernel's dynamic shared memory (a replaying build's
+// multipliers), allowed above the default limit, and the largest
+// shared-memory carveout.
+template <typename K>
+cudaError_t configure(K kernel, int* smem) {
   *smem = REPLAY ? WARPS * FSLOTS * (int)sizeof(float2) : 0;
   if (REPLAY) {
     const cudaError_t err = cudaFuncSetAttribute(
-        hc_track_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
     if (err != cudaSuccess) return err;
   }
-  return cudaFuncSetAttribute(hc_track_kernel,
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+cudaError_t configure_track(int* smem) { return configure(hc_track_kernel, smem); }
+
 }  // namespace
 
-// Resident blocks per SM of this build's tracker on the current device
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and its warps per block;
-// returns a CUDA error code (0 = success).
-extern "C" int hc_track_blocks_per_sm(int* blocks, int* warps) {
+// Resident blocks per SM on the current device
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and warps per block of
+// the tracker a launch at `tile` runs: hc_track_kernel, or at tile > 1
+// (the handoff build only) hc_track_tile_kernel; returns a CUDA error code
+// (0 = success).
+extern "C" int hc_track_blocks_per_sm(int tile, int* blocks, int* warps) {
   int smem = 0;
+  *warps = WARPS;
+#if HC_CPH
+  if (tile > 1) {
+    const cudaError_t err = configure(hc_track_tile_kernel, &smem);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, hc_track_tile_kernel, 32 * WARPS, smem);
+  }
+#endif
+  if (tile != 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = configure_track(&smem);
   if (err != cudaSuccess) return (int)err;
-  *warps = WARPS;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, hc_track_kernel,
                                                       32 * WARPS, smem);
   return (int)err;
 }
 
-// Launch `blocks` persistent blocks on `stream`, taking paths from the
-// int32 counter *next_path (zero at launch); returns cudaGetLastError()
-// (0 = launched), or -1 if the step variant asked for is not the one this
-// library was built as.
+// Launch `blocks` persistent blocks on `stream`, taking paths (tiles of
+// `tile` paths when tile > 1, the handoff build only) from the int32
+// counter *next_path (zero at launch); kept_m, kept_piv, kept_f, kept_it
+// hold n_paths x (NV * W float2, 32 int, FSLOTS float2, 1 int) for the
+// tiled handoff (unused at tile 1).  Returns cudaGetLastError() (0 = launched), or -1 if
+// the step variant asked for is not the one this library was built as.
 extern "C" int hc_track_launch(void* x, void* xl, void* flags, const void* efg,
                                const void* plan, int n_paths, int niter,
                                int mcs, int steps_inc, int truncate,
                                float ez_factor, float t_eps, float tol_sq,
                                float inf_sq, int order, int cjr, int cph,
-                               int rkj, int split2, int abc, int blocks,
-                               void* next_path, void* stream) {
+                               int rkj, int split2, int abc, int tile,
+                               void* kept_m, void* kept_piv, void* kept_f,
+                               void* kept_it, int blocks, void* next_path,
+                               void* stream) {
   if (order != ORDER || (cjr > 0) != CJR || (cph != 0) != CPH ||
-      (rkj != 0) != RKJ || (split2 != 0) != SPLIT2 || (abc != 0) != ABC)
+      (rkj != 0) != RKJ || (split2 != 0) != SPLIT2 || (abc != 0) != ABC ||
+      tile < 1 || (tile > 1 && !CPH))
     return -1;
   if (n_paths <= 0) return 0;
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   Params prm{niter, mcs, steps_inc, truncate, ez_factor, t_eps, tol_sq, inf_sq,
              cjr};
   int smem = 0;
+#if HC_CPH
+  if (tile > 1) {
+    const cudaError_t err = configure(hc_track_tile_kernel, &smem);
+    if (err != cudaSuccess) return (int)err;
+    hc_track_tile_kernel<<<blocks, 32 * WARPS, smem, (cudaStream_t)stream>>>(
+        (float2*)x, (float2*)xl, (float*)flags, (const float2*)efg,
+        (const int*)plan, n_paths, prm, tile, (float2*)kept_m,
+        (int*)kept_piv, (float2*)kept_f, (int*)kept_it, (int*)next_path);
+    return (int)cudaGetLastError();
+  }
+#endif
   const cudaError_t err = configure_track(&smem);
   if (err != cudaSuccess) return (int)err;
   hc_track_kernel<<<blocks, 32 * WARPS, smem, (cudaStream_t)stream>>>(

@@ -22,8 +22,9 @@ reads back one 39-float selection per view (per chunk with the abort).
 
 It runs the configurations ``utils/config.check_shipped`` accepts: either
 solve program, and the step variants predictor "rk4" (the default), "rk3"
-or "rk2", ``corrector_jacobian_reuse`` 1 or 2, ``predictor_handoff`` (at
-``tile`` 1) and ``rk_jacobian_reuse`` (which runs the schedule program),
+or "rk2", ``corrector_jacobian_reuse`` 1 or 2, ``predictor_handoff``
+(decided per tile of ``tile`` paths) and ``rk_jacobian_reuse`` (which runs
+the schedule program),
 the last two not together, and the evaluation variants eval_precision
 "split3_rk2", pair_coef_basis "abc" and eval_structure "gathered" or
 "merged", with any of those; each variant of the step or of the first two

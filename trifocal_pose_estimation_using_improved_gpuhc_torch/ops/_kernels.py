@@ -17,6 +17,8 @@ stages' 2-term split of eval_precision "split3_rk2" and the pair basis
 "abc") are compile-time
 choices: one library per variant, built when a configuration first needs
 it.  eval_structure picks no build: its values are one function here.
+The handoff build also holds the tiled tracker, launched for
+predictor_handoff at HCConfig.tile > 1 (the tile is a launch argument).
 
 ``hc_phase`` launches one of the same source's phase kernels (K1's pieces
 alone, ``ops/phases.py``) in the build of a configuration and counts its
@@ -36,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from trifocal_pose_estimation_using_improved_gpuhc_torch.ops.fused import FSLOTS
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     HCConfig,
     check_hc,
@@ -162,23 +165,33 @@ def _hc_track_lib(cfg: HCConfig) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, i, i, i,
-                       i, i, i, p, p]
+                       i, i, i, p, p, p, p, i, p, p]
         fn.restype = ctypes.c_int
         occ = lib.hc_track_blocks_per_sm
-        occ.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        occ.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
         occ.restype = ctypes.c_int
     return lib
 
 
-_occupancy: dict = {}  # (library, device index) -> (blocks per SM, warps)
+# (library, device index, tiled) -> (blocks per SM, warps per block)
+_occupancy: dict = {}
 
 
-def _occupancy_of(lib: ctypes.CDLL, device: torch.device) -> Tuple[int, int]:
-    key = (lib._name, device.index)
+def _tile_of(cfg: HCConfig) -> int:
+    """The tile a launch under ``cfg`` takes: HCConfig.tile under the
+    handoff (the tiled tracker when above 1), else 1."""
+    return int(cfg.tile) if cfg.predictor_handoff else 1
+
+
+def _occupancy_of(lib: ctypes.CDLL, device: torch.device,
+                  tile: int = 1) -> Tuple[int, int]:
+    """(resident blocks per SM, warps per block) of the tracker a launch at
+    ``tile`` runs in this build."""
+    key = (lib._name, device.index, tile > 1)
     if key not in _occupancy:
         blocks, warps = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = lib.hc_track_blocks_per_sm(ctypes.byref(blocks),
+            err = lib.hc_track_blocks_per_sm(int(tile), ctypes.byref(blocks),
                                              ctypes.byref(warps))
         if err != 0:
             raise RuntimeError(f"hc_track occupancy query failed: CUDA error "
@@ -191,26 +204,29 @@ def _occupancy_of(lib: ctypes.CDLL, device: torch.device) -> Tuple[int, int]:
 
 
 def hc_track_blocks_per_sm(cfg: HCConfig, device=None) -> int:
-    """Resident blocks per SM of the build ``cfg`` runs, on ``device``
-    (default the current CUDA device): the occupancy query the wrapper
-    sizes its persistent grid by.  Raises if it is 0."""
+    """Resident blocks per SM of the tracker ``cfg`` launches (the tiled
+    one under the handoff at a tile above 1), on ``device`` (default the
+    current CUDA device): the occupancy query the wrapper sizes its
+    persistent grid by.  Raises if it is 0."""
     dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
         else torch.device(device)
-    return _occupancy_of(_hc_track_lib(cfg), dev)[0]
+    return _occupancy_of(_hc_track_lib(cfg), dev, _tile_of(cfg))[0]
 
 
 def _grid(lib: ctypes.CDLL, device: torch.device, n_paths: int,
-          blocks: Optional[int]) -> int:
+          blocks: Optional[int], tile: int = 1) -> int:
     """The persistent grid of a launch over n_paths: ``blocks``, by
     default the SMs times the tracker's resident blocks per SM in this
-    build; never more than the paths need."""
-    per_sm, warps = _occupancy_of(lib, device)
+    build; never more than the paths need (a block a tile when tile > 1,
+    the tiled tracker's)."""
+    per_sm, warps = _occupancy_of(lib, device, tile)
+    need = -(-n_paths // (tile if tile > 1 else warps))
     if blocks is None:
         blocks = torch.cuda.get_device_properties(
             device).multi_processor_count * per_sm
     if blocks <= 0:
         raise ValueError(f"blocks must be positive, got {blocks}")
-    return min(int(blocks), -(-n_paths // warps))
+    return min(int(blocks), need)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -239,7 +255,13 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     The grid is persistent: ``blocks`` (default the SMs times the build's
     resident blocks per SM, ``hc_track_blocks_per_sm``; never more than the
     paths need), each warp taking paths from a counter zeroed per launch
-    until none is left.  The result does not depend on ``blocks``."""
+    until none is left.  Under ``predictor_handoff`` at ``cfg.tile`` > 1
+    the launch is the tiled tracker's (``hc_track_tile_kernel``): each
+    block takes tiles of ``cfg.tile`` consecutive paths from the counter,
+    and a path's last corrector elimination is kept in device memory
+    between steps with its corrector iterations (10,628 bytes a path,
+    allocated here per launch).  The result does not depend on
+    ``blocks``."""
     B = x.shape[0]
     q = efg.shape[-1]
     if efg.dim() != 3 or not 0 < q <= 64:
@@ -258,8 +280,16 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     if rkj and int(plan[3]) != 0:
         raise ValueError("rk_jacobian_reuse runs the schedule program only")
     lib = _hc_track_lib(cfg)
-    blocks = _grid(lib, x.device, B, blocks)
+    tile = _tile_of(cfg)
+    blocks = _grid(lib, x.device, B, blocks, tile)
     next_path = torch.zeros(1, dtype=torch.int32, device=x.device)
+    # The kept eliminations of the tiled handoff: the system with its
+    # pivot rows, the pivots and the multipliers (the kernel's NV x W,
+    # 32 and FSLOTS per path), and each path's corrector iterations.
+    kept = [torch.empty((B if tile > 1 else 0, n), dtype=dt,
+                        device=x.device)
+            for n, dt in ((30 * 32, torch.complex64), (32, torch.int32),
+                          (FSLOTS, torch.complex64), (1, torch.int32))]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hc_track_launch(
@@ -269,7 +299,8 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
             float(cfg.end_zone_factor), float(cfg.t_converged_eps),
             float(cfg.corrector_tol_sq), float(cfg.infinity_norm_sq),
             order, int(cfg.corrector_jacobian_reuse), cph, rkj, split2, abc,
-            blocks, next_path.data_ptr(), stream)
+            tile, *(k.data_ptr() for k in kept), blocks,
+            next_path.data_ptr(), stream)
     if err == -1:
         raise RuntimeError(f"{hc_track_label(cfg)} is not the variant its "
                            f"library was built as")

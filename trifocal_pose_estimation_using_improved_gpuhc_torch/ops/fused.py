@@ -43,13 +43,14 @@ the pivot rows, which no later step modifies.
 The step variants of the JAX kernel run here too (``_advance``): predictor
 "rk3" or "rk2", and the three users of a kept elimination, which
 ``resolve_plain`` replays on a new right-hand side with the forward pass's
-own update (``corrector_jacobian_reuse``, ``predictor_handoff`` at a tile
-of one path, ``rk_jacobian_reuse``; the last on the schedule program
-only).  So do its evaluation variants: eval_precision "split3_rk2" (the RK
-stages' evaluations at 2-term bfloat16 splits, ``_assemble(split2=True)``)
-and pair_coef_basis "abc" (``build_pair_coefs``, ``_fill``).  Its
-eval_structure "gathered" and "merged" are TPU matmul forms of the one
-evaluation here.
+own update (``corrector_jacobian_reuse``, ``predictor_handoff``, whose
+validity is decided per tile of ``HCConfig.tile`` batch positions as the
+JAX kernel decides it, and ``rk_jacobian_reuse``; the last on the
+schedule program only).  So do its evaluation variants: eval_precision
+"split3_rk2" (the RK stages' evaluations at 2-term bfloat16 splits,
+``_assemble(split2=True)``) and pair_coef_basis "abc"
+(``build_pair_coefs``, ``_fill``).  Its eval_structure "gathered" and
+"merged" are TPU matmul forms of the one evaluation here.
 """
 
 from __future__ import annotations
@@ -845,11 +846,17 @@ def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
     2-term split of "split3_rk2"), added to its entries; all are known on
     the host at no cost.
 
-    Under ``predictor_handoff`` no path has a kept elimination when the
-    call starts, as the kernel keeps it in shared memory only for the
-    length of a launch (and the JAX kernel resets its handoff flag at
-    every launch): a run split over two calls then differs from one call
-    at the first step of the second."""
+    Under ``predictor_handoff`` a path's RK stage 1 replays its last full
+    corrector elimination of the step before only if no path of its tile
+    (``handoff_valid``: ``cfg.tile`` consecutive positions of this call's
+    batch) rolled back in that step, as the JAX kernel decides it.  The
+    elimination kept is the one of the tile's last corrector iteration, as
+    there: a path whose corrector stopped before the tile's last full
+    iteration (``handoff_refactor``) is factored once more at its final
+    point.  No path has a kept elimination when the call starts, as the
+    kernel keeps it only for the length of a launch (and the JAX kernel
+    resets its handoff flag at every launch): a run split over two calls
+    then differs from one call at the first step of the second."""
     tb = tables or _Tables(consts, x.device)
     check_variant(cfg, consts)
     niter = cfg.max_steps + 1 if niter is None else niter
@@ -861,20 +868,80 @@ def track_plain(consts: FusedConstants, cfg: HCConfig, x: torch.Tensor,
         valid = torch.zeros(B, dtype=torch.bool, device=x.device)
         store = _empty_factor(tb, B, x.device)
     for _ in range(niter):
-        t = flags[:, _F_T]
-        conv = (t >= 1.0) | (1.0 - t <= cfg.t_converged_eps)
-        act = ~conv & (flags[:, _F_INF] < 0.5) & (flags[:, _F_PRN] < 0.5)
-        idx = act.nonzero()[:, 0]
+        idx = _active(cfg, flags).nonzero()[:, 0]
         if idx.numel() == 0:
             break
         ho = (valid[idx], store.index(idx)) if cfg.predictor_handoff else None
         st[idx], flags[idx], ho = _step(tb, cfg, st[idx], flags[idx],
                                         ef[idx], work, ho)
         if ho is not None:
-            valid[idx] = ho[0]
+            fail = torch.zeros(B, dtype=torch.bool, device=x.device)
+            its = torch.zeros(B, dtype=torch.int32, device=x.device)
+            fail[idx], its[idx] = ho[0], ho[2]
+            valid = handoff_valid(fail, cfg.tile)
             _put(store, idx, ho[1])
+            redo = (handoff_refactor(its, cfg) & valid
+                    & _active(cfg, flags)).nonzero()[:, 0]
+            if redo.numel():
+                _put(store, redo, _refactor(tb, cfg, st[redo], flags[redo],
+                                            ef[redo], work))
     return (torch.complex(st[:, 0], st[:, 1]),
             torch.complex(st[:, 2], st[:, 3]), flags)
+
+
+def _per_tile(v: torch.Tensor, tile: int, reduce) -> torch.Tensor:
+    """``reduce`` (torch.any, torch.amax) of (B,) ``v`` over each tile of
+    ``tile`` consecutive positions (the last one possibly partial, padded
+    with zeros), broadcast back to (B,)."""
+    B = v.shape[0]
+    n = -(-B // tile) * tile
+    tiles = torch.zeros(n, dtype=v.dtype, device=v.device)
+    tiles[:B] = v
+    return reduce(tiles.view(-1, tile), dim=1).repeat_interleave(tile)[:B]
+
+
+def handoff_valid(fail: torch.Tensor, tile: int) -> torch.Tensor:
+    """(B,) bool: whether each path's tile (``tile`` consecutive batch
+    positions, the last one possibly partial) had no path that rolled back,
+    given ``fail`` (B,) bool of the step just taken (False for a path that
+    took no step: a finished path does not block its tile).  At tile 1,
+    ~fail."""
+    return ~_per_tile(fail, tile, torch.any)
+
+
+def handoff_refactor(its: torch.Tensor, cfg: HCConfig) -> torch.Tensor:
+    """(B,) bool: the paths whose kept elimination is refactored at their
+    final point, given ``its`` (B,) int, each path's corrector iterations
+    in the step just taken (0 for a path that took none).  The JAX kernel
+    runs a tile's corrector iterations until every lane of it is done and
+    saves each full iteration's elimination for every lane, a done lane's
+    at its point, which no longer moves: the elimination kept is the one
+    of the tile's last full iteration (the m-th, m the tile's most
+    iterations; under corrector_jacobian_reuse = k no later than the
+    k-th), at its final point for a path that stopped before it.  Never at
+    tile 1.  (Its lanes without a step compute too and can lengthen the
+    tile's corrector there; here only the paths that stepped count.)"""
+    k = cfg.corrector_jacobian_reuse or cfg.max_correction_steps
+    last = torch.clamp(_per_tile(its, cfg.tile, torch.amax), max=k)
+    return (its > 0) & (its < last)
+
+
+def _refactor(tb: _Tables, cfg: HCConfig, st, fl, ef, work) -> Factor:
+    """The corrector's elimination at each path's point and t: x = st[:,
+    0:2], the corrector's parameter products at fl's t (a full solve in
+    ``work``, as the kernel's)."""
+    if work is not None:
+        work["solves"] = work.get("solves", 0) + st.shape[0]
+    P, _ = _fill(ef.unbind(1), fl[:, _F_T], rk=False,
+                 basis=cfg.pair_coef_basis)
+    return factor_plain(tb, _assemble(tb, (st[:, 0], st[:, 1]), P, P, True))
+
+
+def _active(cfg: HCConfig, flags: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: the paths that take the next step."""
+    t = flags[:, _F_T]
+    conv = (t >= 1.0) | (1.0 - t <= cfg.t_converged_eps)
+    return ~conv & (flags[:, _F_INF] < 0.5) & (flags[:, _F_PRN] < 0.5)
 
 
 def _empty_factor(tb: _Tables, B: int, device) -> Factor:
@@ -893,7 +960,7 @@ def _put(dst: Factor, idx, src: Factor) -> None:
 
 def _step(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     """One HC step on active paths: st (A, 4, 30) = x re/im, xl re/im;
-    ``ho`` as in ``_advance``."""
+    ``ho`` as in ``_advance`` (a path pruned here did not roll back)."""
     t = fl[:, _F_T]
     fl = fl.clone()
     fl[:, _F_EZ] = torch.maximum(
@@ -908,14 +975,21 @@ def _step(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
             st = st.clone()
             go = (~prune).nonzero()[:, 0]
             if go.numel() == 0:
-                return st, fl, ho
+                return st, fl, (None if ho is None else
+                                (torch.zeros_like(ho[0]), ho[1],
+                                 torch.zeros(ho[0].shape, dtype=torch.int32,
+                                             device=st.device)))
             sub = None if ho is None else (ho[0][go], ho[1].index(go))
             st[go], fl[go], sub = _advance(tb, cfg, st[go], fl[go], ef[go],
                                            work, sub)
             if ho is not None:
                 # A pruned path takes no further step.
-                ho[0][go] = sub[0]
+                fail = torch.zeros_like(ho[0])
+                its = torch.zeros(fail.shape, dtype=torch.int32,
+                                  device=st.device)
+                fail[go], its[go] = sub[0], sub[2]
                 _put(ho[1], go, sub[1])
+                ho = (fail, ho[1], its)
             return st, fl, ho
     return _advance(tb, cfg, st, fl, ef, work, ho)
 
@@ -926,7 +1000,9 @@ def _sub(pair, idx):
 
 def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     """Predictor + Newton corrector + step-size policy; returns (st, fl,
-    the handoff for the next step).
+    ho'), ho' = (the paths that rolled back, each path's last full
+    corrector elimination, each path's corrector iterations) under the
+    handoff.
 
     The predictor is RK4, or ``cfg.predictor`` "rk3" (Kutta's rule) or
     "rk2" (the midpoint rule).  The saved-factorization variants replay a
@@ -935,8 +1011,8 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     ``corrector_jacobian_reuse`` = k, the last full iteration's at
     corrector iterations k and on; ``predictor_handoff``, at stage 1 the
     previous step's last full corrector elimination, on the paths where
-    ``ho`` = (valid (A,), kept Factor) says that step did not roll back.
-    That is the JAX kernel's handoff at a tile of one path."""
+    ``ho`` = (valid (A,), kept Factor) says the handoff holds
+    (``track_plain`` decides it per tile)."""
     t, dt, succ = fl[:, _F_T], fl[:, _F_DT], fl[:, _F_SC]
     dtc = torch.where(fl[:, _F_EZ] > 0.5,
                       torch.minimum(dt, (1.0 - t).abs()),
@@ -1024,11 +1100,13 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     ok = torch.zeros(A, dtype=torch.bool, device=t.device)
     inf = torch.zeros_like(ok)
     live = torch.arange(A, device=t.device)
+    its = torch.zeros(A, dtype=torch.int32, device=t.device)
     cjr = cfg.corrector_jacobian_reuse
     kept = last = None   # the live paths' / every path's last full one
     count("steps", A)
     for it in range(cfg.max_correction_steps):
         count("newton", live.numel())
+        its[live] = it + 1
         cw = cur[live]
         xw, Pl = (cw[:, 0], cw[:, 1]), _sub(P, live)
         if cjr and it >= cjr:
@@ -1071,8 +1149,8 @@ def _advance(tb: _Tables, cfg: HCConfig, st, fl, ef, work, ho=None):
     fl[:, _F_SC] = torch.where(bump, torch.zeros_like(succ2), succ2)
     fl[:, _F_INF] = torch.where(inf, torch.ones_like(t), fl[:, _F_INF])
     fl[:, _F_NST] = fl[:, _F_NST] + 1.0
-    # The handoff is valid after a step that did not roll back.
-    ho = None if ho is None else (~fail, last)
+    # A roll-back blocks the handoff of its tile at the next step.
+    ho = None if ho is None else (fail, last, its)
     return torch.cat([x_new, xl_new], dim=1), fl, ho
 
 
@@ -1144,6 +1222,16 @@ def device_constants(c: FusedConstants, plain: bool = False):
     return on
 
 
+def handoff_pad(cfg: HCConfig, B: int) -> int:
+    """Paths a one-call tracker appends to a batch of B: one copy of path
+    0 under the handoff when B is not a whole number of tiles.  The JAX
+    package's one launch pads the batch to whole tiles with active copies
+    of path 0, which share the last tile and can block its handoff; all
+    of them take the same steps, so one copy decides as they do.  (Its
+    segmented tracker marks its pads pruned: they block nothing.)"""
+    return int(bool(cfg.predictor_handoff) and B % cfg.tile != 0)
+
+
 def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool,
                   dynamic_start: bool = False, coef_builder=None):
     from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
@@ -1181,7 +1269,10 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool,
         else:
             efg = build_pair_coefs(problem, target_params,
                                    cfg.pair_coef_basis)
+        B = x0.shape[0]
         x = x0[:, perm].contiguous()
+        if handoff_pad(cfg, B):
+            x, efg = torch.cat([x, x[:1]]), torch.cat([efg, efg[:1]])
         fl = init_flags(cfg, x.shape[0], x.device)
         if isinstance(aux, _Tables):
             if x.device.type not in ("cpu", "cuda"):
@@ -1193,6 +1284,7 @@ def _make_tracker(problem: TrifocalProblem, cfg: HCConfig, plain: bool,
         else:
             _kernels.hc_track(x, x.clone(), fl, efg, aux, cfg.max_steps + 1,
                               cfg)
+        x, fl = x[:B], fl[:B]
         conv, inf, pruned, steps = flags_outputs(cfg, fl)
         return TrackResult(x=x[:, inv], converged=conv, inf_fail=inf,
                            pruned=pruned, num_steps=steps)

@@ -1,8 +1,8 @@
 """RANSAC: hypothesis sampling, target parameters, inlier scoring.
 
-Counterpart of the JAX package's ``ops/ransac.py``.  Sampling and target
-construction are its pure-numpy functions, re-homed (the reference module
-imports jax); scoring is torch.
+Counterpart of the JAX package's ``ops/ransac.py``.  Sampling (its own and
+the reference's glibc sampler) and target construction are its pure-numpy
+functions, re-homed (the reference module imports jax); scoring is torch.
 
 Depth/reprojection math for a correspondence (g1, g2) in metric image
 coordinates and a relative pose (R, T):
@@ -33,6 +33,61 @@ def sample_edgel_triplets(
         while True:
             s = rng.integers(0, num_edgels, size=3)
             if s[0] != s[1] and s[0] != s[2] and s[1] != s[2]:
+                break
+        out[h] = s
+    return out
+
+
+class GlibcRand:
+    """glibc's rand() (the TYPE_3 additive feedback generator: degree 31,
+    separation 3) bit for bit, so that the reference's srand(seed)-based
+    RANSAC sampling can be reproduced exactly.  A copy of the JAX
+    package's ``ops/ransac.GlibcRand``."""
+
+    def __init__(self, seed: int):
+        seed = seed if seed != 0 else 1
+        r = [0] * 34
+        r[0] = seed & 0xFFFFFFFF
+        for i in range(1, 31):
+            # r[i] = 16807 * r[i-1] % 2147483647 by Schrage's method, as
+            # glibc computes it.
+            hi, lo = divmod(r[i - 1], 127773)
+            word = 16807 * lo - 2836 * hi
+            if word < 0:
+                word += 2147483647
+            r[i] = word
+        for i in range(31, 34):
+            r[i] = r[i - 31]
+        self._r = r
+        for _ in range(34, 344):  # the first 310 outputs are discarded
+            self._next()
+
+    def _next(self) -> int:
+        r = self._r
+        v = (r[-31] + r[-3]) & 0xFFFFFFFF
+        r.append(v)
+        if len(r) > 64:
+            del r[:-31]
+        return v >> 1
+
+    def rand(self) -> int:
+        return self._next()
+
+
+def sample_edgel_triplets_reference(
+    seed: int, num_edgels: int, num_hypotheses: int
+) -> np.ndarray:
+    """The reference's own sampling: glibc srand(seed) and rand() % N,
+    with its duplicate check that never compares indices 0 and 2 (so
+    e0 == e2 passes).  For reconciling counts with the reference's
+    committed sample runs (``tools/reconcile_stats_torch.py``); the
+    engine samples with ``sample_edgel_triplets``."""
+    rng = GlibcRand(seed)
+    out = np.empty((num_hypotheses, 3), dtype=np.int64)
+    for h in range(num_hypotheses):
+        while True:
+            s = [rng.rand() % num_edgels for _ in range(3)]
+            if s[0] != s[1] and s[1] != s[2]:  # e0 == e2 passes
                 break
         out[h] = s
     return out

@@ -73,8 +73,9 @@ class HCConfig:
     # (ops/reduce.py), "schedule" = the 30-step static schedule
     # (ops/schedule.py); same pivots, different programs.
     solver: str = "reduced"
-    # The TPU kernel's paths per tile.  Only predictor_handoff depends on
-    # it there (decided per tile); the port runs that at tile 1 only.
+    # The TPU kernel's paths per tile: tile consecutive batch positions.
+    # Only predictor_handoff depends on it (the handoff is decided once per
+    # tile); every other knob computes the same per path at any tile.
     tile: int = 128
 
 
@@ -173,13 +174,9 @@ def check_hc(hc: HCConfig) -> None:
         # the JAX kernel refuses the pair (ops/fused.py there).
         raise ValueError("hc.predictor_handoff and hc.rk_jacobian_reuse "
                          "cannot be combined")
-    if hc.predictor_handoff and hc.tile != 1:
-        # The JAX kernel decides the handoff once per tile of hc.tile paths
-        # (no path of the tile rolled back); the port decides it per path,
-        # which is that function at a tile of one path only.
-        raise ValueError(f"hc.predictor_handoff needs hc.tile=1, got "
-                         f"hc.tile={hc.tile}: the JAX kernel decides the "
-                         f"handoff per tile, the port per path")
+    if hc.tile < 1:
+        raise ValueError(f"hc.tile={hc.tile} is not a number of paths: "
+                         f"a tile holds at least one")
 
 
 def check_shipped(cfg: EngineConfig) -> None:
