@@ -36,7 +36,9 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      tile an active copy of path 0 pads, and segmented), an H=100 engine
      round, the segmented tracker alone on the H=100 inputs against
      track_plain over the same segments (at tile 128 also one launch
-     timed), and an abort round under corrector_jacobian_reuse=2;
+     timed, with the cluster size, the resident clusters, each launch's
+     tiles and the tiled kernel's ptxas line), and an abort round under
+     corrector_jacobian_reuse=2;
   9. the evaluation variants: eval_precision "split3_rk2" (the RK stages
      at 2-term bf16 splits) and pair_coef_basis "abc", each a build of its
      own, as in phase 8 and bit for bit against their plain twins, with
@@ -125,7 +127,9 @@ hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
 the round's 30,700 paths; and one per variant, with its segmented
 tracker's ms, the plain run over the same segments and plain_paths
-(cph128 also with ms_one_launch, its tile and its kernel); the two
+(cph128 also with ms_one_launch, its tile, its kernel, the cluster of
+its one launch, the resident clusters by size and each segment launch's
+tiles, cluster and blocks); the two
 structures repeat the reduced entry's numbers with their own launches;
 one hc_phase entry per phase and program of phase 10, ms and plain_ms per
 iteration over the 30,700 paths, launches in the timed table and
@@ -248,6 +252,25 @@ def timed(fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def tile_geometry(_kernels, fn):
+    """[(tiles, cluster, blocks)] of each launch of the tiled tracker in
+    fn(), as _kernels.tile_launch chose them."""
+    chosen, pick = [], _kernels.tile_launch
+
+    def recording(n_paths, tile, *args, **kw):
+        cluster, grid = pick(n_paths, tile, *args, **kw)
+        chosen.append((-(-n_paths // tile), cluster, grid))
+        return cluster, grid
+
+    _kernels.tile_launch = recording
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        _kernels.tile_launch = pick
+    return chosen
 
 
 def ptxas_lines(log):
@@ -1552,18 +1575,29 @@ def main() -> int:
                             bound_by=by_v))
         if hc_v.tile > 1 and hc_v.predictor_handoff:
             # The tiled kernel in one launch on the round's paths (30,700:
-            # its last tile padded), and its own occupancy.
+            # its last tile padded), its own occupancy, and the geometry of
+            # each launch (one launch, then each segment's over its
+            # active prefix): tiles, the cluster a tile runs on, blocks.
             one_v = sorted(timed(lambda: kv(x0, tgt))[1] for _ in range(3))[1]
             tile_bps = _kernels.hc_track_blocks_per_sm(hc_v, dev)
+            resident = _kernels.hc_track_tile_clusters(hc_v, dev)
+            geo_one = tile_geometry(_kernels, lambda: kv(x0, tgt))
+            geo_seg = tile_geometry(_kernels, lambda: seg_v(x0, tgt))
             print(f"{name}: one launch on {n} paths {one_v:.3f} ms (median "
                   f"of 3); hc_track_tile_kernel blocks_per_sm {tile_bps}, "
-                  f"tile {hc_v.tile}, {-(-n // hc_v.tile)} tiles; ptxas "
+                  f"tile {hc_v.tile}, {-(-n // hc_v.tile)} tiles; resident "
+                  f"clusters by size {resident}; one launch (tiles, "
+                  f"cluster, blocks) {geo_one[0]}; segment launches "
+                  f"{geo_seg}; ptxas "
                   + "; ".join(ptxas_lines(_kernels.build_logs.get(
                       _kernels.hc_track_label(hc_v), "")).get(
                           "hc_track_tile_kernel", [])), flush=True)
+            assert len(geo_one) == 1 and len(geo_seg) > 1, (geo_one, geo_seg)
             kernels[-1].update(ms_one_launch=one_v, tile=hc_v.tile,
                                kernel="hc_track_tile_kernel",
-                               blocks_per_sm=tile_bps)
+                               blocks_per_sm=tile_bps, cluster=geo_one[0][1],
+                               resident_clusters=resident,
+                               segment_launches=geo_seg)
 
         if name == "cjr2":
             engine_va = eng.TrifocalPoseEngine(dataclasses.replace(

@@ -13,11 +13,14 @@ variant's build (the step variants, the RK stages' 2-term split of
 "split3_rk2" alone and with each replaying variant, the basis "abc"), and
 for segmented tracking against one launch (under the predictor handoff,
 which restarts at every launch, against track_plain over the same
-segments).  The handoff decided per tile (HCConfig.tile 1, 32 and 128:
-the per-path kernel at 1, hc_track_tile_kernel above) equals
+segments).  The handoff decided per tile (HCConfig.tile 1, 2, 7, 32, 128
+and 256: the per-path kernel at 1, hc_track_tile_kernel above) equals
 track_plain's tile rule, with the elimination it keeps (the tile's last
 corrector iteration's), bit for bit in one launch (an active copy of path
-0 pads the last tile) and segmented.  The kernel's solve and replay are
+0 pads the last tile) and segmented; the tiled kernel gives the same
+paths in clusters of 1, 2, 4 and 8 blocks, raises on a cluster the card
+refuses, and keeps its registers and its 16 warps per SM.  The kernel's
+solve and replay are
 also held alone
 (hc_solve_replay) to their plain twins; the default build's ptxas line and
 blocks per SM are pinned; eval_structure "gathered" and "merged" launch the
@@ -292,13 +295,14 @@ _VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tile", [1, 32, 128])
+@pytest.mark.parametrize("tile", [1, 2, 7, 32, 128, 256])
 @pytest.mark.parametrize("driver", ["one_launch", "segmented"])
 def test_cuda_tiled_handoff_matches_track_plain(setup, tile, driver):
     """The handoff decided per tile of ``tile`` paths, bit for bit with
-    track_plain on 2 x the roots (614 paths: the last tile of 32 or 128 is
-    partial), in one launch (padded with an active copy of path 0) and
-    segmented (no pad, a launch per segment over the active prefix)."""
+    track_plain on 2 x the roots (614 paths: the last tile of 7, 32, 128
+    or 256 is partial), in one launch (padded with an active copy of path
+    0) and segmented (no pad, a launch per segment over the active
+    prefix)."""
     cfg, port, x0, tgt = setup
     hc = dataclasses.replace(cfg.hc, predictor_handoff=True, tile=tile)
     before = _kernels.hc_track.launches
@@ -313,6 +317,50 @@ def test_cuda_tiled_handoff_matches_track_plain(setup, tile, driver):
             x0, tgt).track
     torch.cuda.synchronize()
     _assert_same(k, p)
+
+
+@pytest.mark.gpu
+def test_cuda_tiled_handoff_any_cluster(setup):
+    """The tiled tracker at tile 128 gives the same paths in clusters of
+    1, 2, 4 and 8 blocks as at its chosen geometry, and in a grid of one
+    cluster: which block of a cluster runs a path changes nothing."""
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, predictor_handoff=True, tile=128)
+    fresh, efg, plan = _fresh_state(port, hc, x0, tgt)
+    chosen = fresh()
+    _kernels.hc_track(*chosen, efg, plan, hc.max_steps + 1, hc)
+    runs = {}
+    for c in (1, 2, 4, 8):
+        for blocks in (None, c):
+            runs[c, blocks] = fresh()
+            _kernels.hc_track(*runs[c, blocks], efg, plan, hc.max_steps + 1,
+                              hc, blocks=blocks, cluster=c)
+    torch.cuda.synchronize()
+    resident = _kernels.hc_track_tile_clusters(hc)
+    assert sorted(resident) == list(range(1, _kernels.MAX_CLUSTER + 1))
+    assert all(n > 0 for n in resident.values()), resident
+    for key, run in runs.items():
+        for u, v in zip(chosen, run):
+            assert torch.equal(u, v), key
+
+
+@pytest.mark.gpu
+def test_cuda_tiled_handoff_refused_cluster_raises(setup):
+    """A cluster the card refuses (32 blocks: above the portable 8, and the
+    kernel does not allow more) raises, launches nothing, and leaves no
+    error behind for the next launch."""
+    cfg, port, x0, tgt = setup
+    hc = dataclasses.replace(cfg.hc, predictor_handoff=True, tile=128)
+    fresh, efg, plan = _fresh_state(port, hc, x0, tgt)
+    before = _kernels.hc_track.launches
+    with pytest.raises(RuntimeError, match="cluster"):
+        _kernels.hc_track(*fresh(), efg, plan, 4, hc, cluster=32)
+    assert _kernels.hc_track.launches == before
+    state = fresh()
+    _kernels.hc_track(*state, efg, plan, 4, hc)
+    torch.cuda.synchronize()
+    assert _kernels.hc_track.launches == before + 1
+    assert int(state[2][:, fused._F_NST].max()) == 4
 
 
 @pytest.mark.gpu
@@ -453,6 +501,25 @@ def test_cuda_default_build_resources(setup, tmp_path, monkeypatch):
     assert _resources(_kernels.build_logs[job[1]], "hc_track_kernel") == \
         (83, 45568, 0, 0)
     assert _kernels.hc_track_blocks_per_sm(config.HCConfig()) == 5
+
+
+@pytest.mark.gpu
+def test_cuda_tile_kernel_resources(setup, tmp_path, monkeypatch):
+    """The handoff build's tiled tracker: at most 116 registers (its
+    count before clusters), no spills, one block of 16 warps per SM (the
+    replaying builds' 16 warps); the build's per-path tracker keeps its
+    86 registers."""
+    monkeypatch.setattr(_kernels, "BUILD_DIR", str(tmp_path))
+    hc = config.HCConfig(predictor_handoff=True, tile=128)
+    job = _kernels._hc_track_job(hc)
+    _kernels.build([job])
+    regs, _, spill_st, spill_ld = _resources(_kernels.build_logs[job[1]],
+                                             "hc_track_tile_kernel")
+    assert regs <= 116 and (spill_st, spill_ld) == (0, 0)
+    assert _resources(_kernels.build_logs[job[1]], "hc_track_kernel")[0] == 86
+    assert _kernels.hc_track_blocks_per_sm(hc) == 1
+    lib = _kernels._hc_track_lib(hc)
+    assert _kernels._occupancy_of(lib, torch.device("cuda", 0), 128)[1] == 16
 
 
 _PHASE_PATHS = 10   # x the roots

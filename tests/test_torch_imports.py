@@ -100,7 +100,8 @@ def test_microbench_torch_names_no_jax_module():
                                   "f64_reconcile_torch.py",
                                   "reconcile_stats_torch.py",
                                   "accuracy_sweep_torch.py",
-                                  "roofline_torch.py"])
+                                  "roofline_torch.py",
+                                  "tile_sweep_torch.py"])
 def test_torch_tools_name_no_jax_module(tool):
     """The other tools/*_torch*.py import the port inside main, so they
     are read, not run."""

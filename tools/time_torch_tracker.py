@@ -11,7 +11,8 @@ times on one RANSAC round's paths (view 0, seed 0, H=100 hypotheses) by
 CUDA events, median of 3 after a warm-up: the segmented tracker (the
 engine's default: segments of 8 steps with survivor compaction) and one
 launch for both solve programs ("reduced", K1; "schedule", K1e), the
-segmented tracker of each step and evaluation variant, and one engine
+segmented tracker of each step and evaluation variant (the handoff per
+tile of 128, "cph128", the tiled tracker, also in one launch), and one engine
 round's track_ms and total_ms (after a warm-up round).  It prints one
 line per measurement and, with ``--json``, writes them.
 
@@ -39,9 +40,13 @@ VARIANTS = {"rk2": dict(predictor="rk2"), "rk3": dict(predictor="rk3"),
             "cjr1": dict(corrector_jacobian_reuse=1),
             "cjr2": dict(corrector_jacobian_reuse=2),
             "cph": dict(predictor_handoff=True, tile=1),
+            # The handoff per tile of 128 paths: the tiled tracker.
+            "cph128": dict(predictor_handoff=True, tile=128),
             "rkj": dict(rk_jacobian_reuse=True),
             "split2": dict(eval_precision="split3_rk2"),
             "abc": dict(pair_coef_basis="abc")}
+# The builds also timed in one launch.
+ONE_LAUNCH = ("reduced", "schedule", "cph128")
 
 
 def _card() -> str:
@@ -110,7 +115,7 @@ def measure(tree: str) -> dict:
         out["blocks_per_sm"][name] = query(c) if query else None
         seg = segmented.make_segmented_track_fn(problem, c)
         out["segmented_ms"][name] = median3(lambda: seg(x0, tgt))
-        if name in ("reduced", "schedule"):
+        if name in ONE_LAUNCH:
             one = fused.make_track_fn(problem, c)
             out["one_launch_ms"][name] = median3(lambda: one(x0, tgt))
         print(f"{name}: segmented {out['segmented_ms'][name]:.3f} ms"

@@ -96,9 +96,11 @@
 // fast-math: every product and sum rounds once, in the order track_plain
 // writes it out, so the kernel and its twin agree bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #ifndef HC_ORDER
@@ -121,6 +123,8 @@
 #endif
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int NV = 30;        // variables = equations
 constexpr int RHS = 30;       // right-hand-side column of the augmented row
@@ -340,13 +344,21 @@ __device__ void assemble(WarpSmem& s, const int* __restrict__ plan,
   walk_terms<S2>(s, plan + plan[H_EVAL], plan[H_NQUAD], want_h, lane);
 }
 
+// No work: the default `ready` of assemble_rhs and hc_step.
+struct NoWait {
+  __device__ __forceinline__ void operator()() const {}
+};
+
 // The rhs column alone (a replay's input; the rest of s.m is the kept
 // elimination): the cubic monomials and the rhs entries' own plan.
-template <bool S2 = false>
+// ready() runs before the first write to s.m (the tiled tracker waits
+// there for its copy of the kept elimination to land).
+template <bool S2 = false, typename Ready = NoWait>
 __device__ void assemble_rhs(WarpSmem& s, const int* __restrict__ plan,
-                             bool want_h, int lane) {
+                             bool want_h, int lane, Ready ready = Ready()) {
   const int n_quad = plan[H_NQUAD];
   monomials<S2>(s, plan, n_quad, lane);
+  ready();
   walk_terms<S2>(s, plan + plan[H_EVALR], n_quad, want_h, lane);
 }
 
@@ -634,7 +646,9 @@ __device__ __forceinline__ bool finished(const PathState& ps,
 // pruned now; otherwise sets `fail` (the corrector rolled the step back)
 // and `iters` (the corrector iterations it ran).
 // Under CPH with `handoff`, RK stage 1 replays the elimination that s and
-// keep hold (the previous step's last full corrector solve).
+// keep hold (the previous step's last full corrector solve), once
+// kept_ready() has returned (assemble_rhs's `ready`).
+template <typename Ready = NoWait>
 __device__ __forceinline__ bool hc_step(WarpSmem& s, float2* keep,
                                         const int* __restrict__ plan,
                                         const Params& prm,
@@ -643,7 +657,8 @@ __device__ __forceinline__ bool hc_step(WarpSmem& s, float2* keep,
                                         const float2 (&g)[2], PathState& ps,
                                         bool handoff, bool& fail,
                                         int& iters, bool is_depth, int q_n,
-                                        int lane) {
+                                        int lane,
+                                        Ready kept_ready = Ready()) {
   // RK stage k >= 2 at point xp: a full solve, or (RKJ) stage 1's
   // elimination replayed on the -Ht there.  Every RK-stage evaluation
   // runs under the split of SPLIT2.
@@ -682,7 +697,7 @@ __device__ __forceinline__ bool hc_step(WarpSmem& s, float2* keep,
   set_point<SPLIT2>(s, xv, lane);
   float2 k1;
   if (CPH && handoff) {
-    assemble_rhs<SPLIT2>(s, plan, false, lane);
+    assemble_rhs<SPLIT2>(s, plan, false, lane, kept_ready);
     k1 = replay(s, plan, keep, lane);
   } else {
     assemble<SPLIT2>(s, plan, false, lane);
@@ -801,31 +816,162 @@ hc_track_kernel(float2* __restrict__ x, float2* __restrict__ xl,
 }
 
 #if HC_CPH
-// The last corrector elimination of a path (the system with its pivot
-// rows, the pivots, the multipliers) to and from its area in device
-// memory, for the tiled handoff.
-__device__ __forceinline__ void save_elimination(WarpSmem& s,
-                                                 const float2* keep,
-                                                 float2* __restrict__ km,
-                                                 int* __restrict__ kp,
-                                                 float2* __restrict__ kf,
-                                                 int lane) {
-  __syncwarp();
-  for (int i = lane; i < NV * W; i += 32) km[i] = s.m[i];
-  kp[lane] = s.piv[lane];
-  for (int i = lane; i < FSLOTS; i += 32) kf[i] = keep[i];
+// The tiled handoff: hc_track_tile_kernel and the pieces it alone uses.
+//
+// The last corrector elimination of a path is kept in device memory
+// between steps, one record of KEPT_BYTES a path: the system with its
+// pivot rows, the pivots, the multipliers (s.m, s.piv and keep, moved by
+// three bulk copies each way).
+constexpr unsigned KEPT_M = NV * W * sizeof(float2);      // 7,680
+constexpr unsigned KEPT_P = 32 * sizeof(int);             //   128
+constexpr unsigned KEPT_F = FSLOTS * sizeof(float2);      // 2,816
+constexpr unsigned KEPT_BYTES = KEPT_M + KEPT_P + KEPT_F;  // 10,624
+static_assert(KEPT_M % 16 == 0 && KEPT_P % 16 == 0 && KEPT_F % 16 == 0,
+              "a bulk copy moves a multiple of 16 bytes");
+static_assert(offsetof(WarpSmem, piv) == KEPT_M + 1024 + 256 + 2304 &&
+                  offsetof(WarpSmem, piv) % 16 == 0 &&
+                  sizeof(WarpSmem) % 16 == 0,
+              "bulk copies start on 16-byte boundaries");
+
+// Warps per block of the tiled tracker, one block per SM (the replaying
+// builds' 16 warps per SM); a tile runs on a cluster of blocks, its size
+// chosen per launch.  Their per-warp areas are all dynamic shared memory
+// (16 warps' pass the 48 KB of static shared memory): the warps'
+// WarpSmem, then their multiplier areas.
+constexpr int TILE_WARPS = 16;
+constexpr int TILE_MIN_BLOCKS = MIN_BLOCKS * WARPS / TILE_WARPS;
+constexpr int TILE_SMEM =
+    TILE_WARPS * (int)(sizeof(WarpSmem) + FSLOTS * sizeof(float2));
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void load_elimination(WarpSmem& s, float2* keep,
-                                                 const float2* __restrict__ km,
-                                                 const int* __restrict__ kp,
-                                                 const float2* __restrict__ kf,
-                                                 int lane) {
-  for (int i = lane; i < NV * W; i += 32) s.m[i] = km[i];
-  s.piv[lane] = kp[lane];
-  for (int i = lane; i < FSLOTS; i += 32) keep[i] = kf[i];
-  __syncwarp();
+// A path's state as load_path reads it, but through L2 (ld.global.cg):
+// another block of the cluster may have written it in the step before.
+__device__ __forceinline__ PathState load_path_l2(const float2* x,
+                                                  const float2* xl,
+                                                  const float* flags,
+                                                  int path, int lane) {
+  const float2 zero = make_float2(0.f, 0.f);
+  const float* fl = flags + (size_t)path * 8;
+  return PathState{lane < NV ? __ldcg(x + (size_t)path * NV + lane) : zero,
+                   lane < NV ? __ldcg(xl + (size_t)path * NV + lane) : zero,
+                   __ldcg(fl), __ldcg(fl + 1), __ldcg(fl + 2), __ldcg(fl + 3),
+                   __ldcg(fl + 4), __ldcg(fl + 5), __ldcg(fl + 6),
+                   __ldcg(fl + 7)};
 }
+
+// One warp's bulk copies (the 1-D TMA copy, cp.async.bulk) of its kept
+// elimination between its shared areas and a path's record.  Lane 0
+// issues them; the proxy fences order them with the warp's own loads and
+// stores.  A save runs behind the warp's next work and is waited for
+// before the warp writes its system again (reuse) and, in device memory,
+// before the step's barrier (drain); a fetch lands on the warp's
+// mbarrier, waited for where the replay first writes the system.
+struct KeptCopies {
+  unsigned bar;     // the warp's mbarrier (shared address)
+  unsigned parity;  // the phase of the bar the next fetch completes
+  bool saving;      // a save may still read the shared areas
+  bool fetching;    // a fetch may still write them
+
+  __device__ void init(int lane) {
+    if (lane == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+                   "r"(1u)
+                   : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncwarp();
+  }
+
+  // The shared areas free for the warp's writes.
+  __device__ void reuse(int lane) {
+    if (saving) {
+      if (lane == 0)
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      __syncwarp();
+      saving = false;
+    }
+  }
+
+  // The warp's generic writes to the areas ordered before bulk copies.
+  __device__ static void handover() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+  }
+
+  __device__ void save(WarpSmem& s, const float2* keep, char* rec,
+                       int lane) {
+    handover();
+    if (lane == 0) {
+      const char* src[3] = {(const char*)s.m, (const char*)s.piv,
+                            (const char*)keep};
+      const unsigned len[3] = {KEPT_M, KEPT_P, KEPT_F};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        asm volatile(
+            "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::
+                "l"(rec),
+            "r"(smem_addr(src[k])), "r"(len[k])
+            : "memory");
+        rec += len[k];
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+    saving = true;
+  }
+
+  __device__ void fetch(WarpSmem& s, float2* keep, const char* rec,
+                        int lane) {
+    reuse(lane);
+    handover();
+    if (lane == 0) {
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+          "r"(KEPT_BYTES)
+          : "memory");
+      char* dst[3] = {(char*)s.m, (char*)s.piv, (char*)keep};
+      const unsigned len[3] = {KEPT_M, KEPT_P, KEPT_F};
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst[k])),
+            "l"(rec), "r"(len[k]), "r"(bar)
+            : "memory");
+        rec += len[k];
+      }
+    }
+    fetching = true;
+  }
+
+  // The fetch landed (every lane waits on the mbarrier's phase).
+  __device__ void landed() {
+    if (!fetching) return;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "WAIT:\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n\t"
+        "@!p bra WAIT;\n\t}" ::"r"(bar),
+        "r"(parity)
+        : "memory");
+    parity ^= 1u;
+    fetching = false;
+  }
+
+  // The saves complete in device memory, for the other blocks after the
+  // cluster's barrier.
+  __device__ void drain(int lane) {
+    if (lane == 0) {
+      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+    }
+    __syncwarp();
+    saving = false;
+  }
+};
 
 // A corrector iteration's full solve at the path's point and t, its update
 // unused: the elimination that s and keep then hold is the one the JAX
@@ -844,117 +990,185 @@ __device__ __forceinline__ void refactor(WarpSmem& s, float2* keep,
   solve<REPLAY>(s, plan, keep, lane);
 }
 
+// Words of a tile's step in the cluster leader's shared memory: the path
+// counters of the step and of its refactor pass, and the tile's "a path
+// rolled back", "a path goes on" and most corrector iterations.
+enum { T_NEXT = 0, T_REDO, T_FAILED, T_LIVE, T_MOST, T_WORDS };
+
 // The handoff decided per tile of `tile` consecutive paths, as the JAX
 // kernel decides it (its `cont[1] = max(failf) < 0.5`): RK stage 1 of a
 // step replays only if no path of the tile rolled back in the step before,
-// and never at a launch's first step.  One block per tile at a time
-// (blocks take tiles from the counter *next_tile): the tile's paths step
-// in lockstep, each warp taking the tile's next path of the step from a
-// counter in shared memory, and the block's barrier ends the step with
-// the tile's "any path failed" word and its most corrector iterations m.
-// A path's tracking state lives in x, xl, flags between steps, and its
-// last corrector elimination in km, kp, kf (NV * W + 32 + FSLOTS words per
-// path; its corrector iterations in kept_it): a tile's systems do not fit
-// in shared memory.  Each path runs hc_step, the arithmetic of
-// hc_track_kernel.  What differs from it is the handoff's validity and
-// the elimination kept: the JAX kernel runs a tile's corrector until
-// every lane is done and saves each full iteration's elimination for
-// every lane, so a path that stopped before the tile's last full
-// iteration (the m-th, under CJR no later than the cjr-th) keeps the one
-// at its final point, which a second pass after the barrier computes
-// (refactor) when the handoff holds.
-// What bounds it beyond hc_track_kernel's latency: fewer resident warps
-// (a tile is one block of WARPS warps, so a batch fills batch / tile
-// blocks, and each block waits at every step's barrier for its slowest
-// path) and the kept elimination's trip through device memory, 10,624
-// bytes out after each step that keeps it and in before each replay.
-__global__ void __launch_bounds__(32 * WARPS, MIN_BLOCKS)
+// and never at a launch's first step.  Each path runs hc_step, the
+// arithmetic of hc_track_kernel.  What differs from it is the handoff's
+// validity and the elimination kept: the JAX kernel runs a tile's
+// corrector until every lane is done and saves each full iteration's
+// elimination for every lane, so a path that stopped before the tile's
+// last full iteration (the m-th, under CJR no later than the cjr-th) keeps
+// the one at its final point, which a second pass after the step's
+// barrier computes (refactor) when the handoff holds.
+//
+// What bounds it beyond hc_track_kernel's latency: the lockstep.  Every
+// step of a tile ends at a barrier that waits for its slowest path, so a
+// tile's step lasts as long as the longest run of paths one of its warps
+// takes: with few warps a tile is a long chain of path-steps, with one
+// path a warp the step waits for the tile's slowest path-step alone.
+//
+// The design (the layout, cluster sizes and copies measured against
+// each other on the H100: PERF.md, PR 12): a tile runs on a thread-block
+// cluster of 16-warp blocks, sized per launch by ops/_kernels.tile_launch
+// (each warp about 4 of the tile's paths a step, more warps when the
+// tiles are too few to fill the card; at most the portable 8 blocks), on
+// a persistent grid of whole clusters taking tiles from the counter
+// *next_tile.
+//  * The cluster's leader block (rank 0) holds the tile's words in its
+//    shared memory; every warp of the cluster reaches them by distributed
+//    shared memory (map_shared_rank), taking the tile's next path of the
+//    step from its counter and adding its outcome with atomics there.
+//  * The step's barrier is the cluster's hardware barrier (release /
+//    acquire): a path's state and kept elimination, written to device
+//    memory by one block, are then visible to whichever block takes the
+//    path next.  The words come in three sets used in turn, so that one
+//    barrier per step suffices: after step g's barrier the leader clears
+//    the set of step g + 2, which every block read before it arrived.
+//  * The refactor pass follows the barrier, dealt over all the cluster's
+//    warps by a counter of its own, and ends at a second barrier.
+//  * A path's state moves through L2 (ld.global.cg) and its kept
+//    elimination (10,624 bytes) by bulk copies: the save after a step
+//    runs behind the warp's next path, the fetch before a replay is
+//    issued when the path is taken and waited for only where the replay
+//    first writes the system (after the fill and the rhs's monomials).
+//    With 16-warp blocks the copies gain 1-3 % on the warps' own loads
+//    and stores.
+__global__ void __launch_bounds__(32 * TILE_WARPS, TILE_MIN_BLOCKS)
 hc_track_tile_kernel(float2* __restrict__ x, float2* __restrict__ xl,
                      float* __restrict__ flags, const float2* __restrict__ efg,
                      const int* __restrict__ plan, int n_paths, Params prm,
-                     int tile, float2* __restrict__ kept_m,
-                     int* __restrict__ kept_piv, float2* __restrict__ kept_f,
+                     int tile, char* __restrict__ kept,
                      int* __restrict__ kept_it, int* __restrict__ next_tile) {
-  __shared__ WarpSmem smem[WARPS];
-  __shared__ int tile_first, next, failed, live, most;
+  extern __shared__ __align__(128) unsigned char tile_smem[];
+  WarpSmem* const smem = reinterpret_cast<WarpSmem*>(tile_smem);
+  __shared__ __align__(8) unsigned long long bars[TILE_WARPS];
+  // The leader's alone are used: a step's words, three sets in turn, and
+  // the tile's first path, two in turn.
+  __shared__ int words[3][T_WORDS], firsts[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const bool leader = cluster.block_rank() == 0;
+  int* const lead_words = cluster.map_shared_rank(&words[0][0], 0);
+  const int* const lead_first = cluster.map_shared_rank(firsts, 0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   WarpSmem& s = smem[warp];
-  float2* keep = keep_area(warp);
+  float2* keep =
+      reinterpret_cast<float2*>(smem + TILE_WARPS) + warp * FSLOTS;
   const int q_n = plan[H_Q];
   const bool is_depth = depth_lane(plan, lane);
+  KeptCopies kc{smem_addr(&bars[warp]), 0u, false, false};
+  kc.init(lane);
+  if (threadIdx.x < 3 * T_WORDS) (&words[0][0])[threadIdx.x] = 0;
+  cluster.sync();  // every block has started, the words are clear
 
-  for (;;) {
-    if (threadIdx.x == 0) tile_first = atomicAdd(next_tile, 1) * tile;
-    __syncthreads();
-    const int first = tile_first;
-    __syncthreads();
+  int gs = 0;  // the cluster's steps so far: step gs counts in set gs % 3
+  for (int j = 0;; j ^= 1) {
+    if (leader && threadIdx.x == 0)
+      firsts[j] = atomicAdd(next_tile, 1) * tile;
+    cluster.sync();
+    const int first = lead_first[j];
     if (first >= n_paths) break;
     const int count = min(tile, n_paths - first);
     bool handoff = false;
     for (int it = 0; it < prm.niter; ++it) {
-      if (threadIdx.x == 0) next = failed = live = most = 0;
-      __syncthreads();
+      int* const w = lead_words + (gs % 3) * T_WORDS;
       for (;;) {
         int i = 0;
-        if (lane == 0) i = atomicAdd(&next, 1);
+        if (lane == 0) i = atomicAdd(w + T_NEXT, 1);
         i = __shfl_sync(FULL, i, 0);
         if (i >= count) break;
         const int path = first + i;
-        PathState ps = load_path(x, xl, flags, path, lane);
+        PathState ps = load_path_l2(x, xl, flags, path, lane);
         if (finished(ps, prm)) continue;  // blocks nothing
+        char* rec = kept + (size_t)path * KEPT_BYTES;
+        if (handoff)
+          kc.fetch(s, keep, rec, lane);
+        else
+          kc.reuse(lane);
         float2 e[2], f[2], g[2];
         load_coefs(efg, q_n, path, lane, e, f, g);
-        float2* km = kept_m + (size_t)path * NV * W;
-        int* kp = kept_piv + (size_t)path * 32;
-        float2* kf = kept_f + (size_t)path * FSLOTS;
-        if (handoff) load_elimination(s, keep, km, kp, kf, lane);
         bool fail = false;
         int iters = 0;
-        const bool stepped = hc_step(s, keep, plan, prm, e, f, g, ps,
-                                     handoff, fail, iters, is_depth, q_n,
-                                     lane);
+        const bool stepped =
+            hc_step(s, keep, plan, prm, e, f, g, ps, handoff, fail, iters,
+                    is_depth, q_n, lane, [&kc] { kc.landed(); });
+        kc.landed();  // a path pruned before its predictor
         const bool goes_on = !finished(ps, prm);
-        if (stepped && !fail && goes_on)
-          save_elimination(s, keep, km, kp, kf, lane);
+        if (stepped && !fail && goes_on) kc.save(s, keep, rec, lane);
         store_path(x, xl, flags, ps, path, lane);
         if (lane == 0) {
           kept_it[path] = stepped ? iters : 0;
-          if (fail) atomicOr(&failed, 1);
-          if (goes_on) atomicOr(&live, 1);
-          if (stepped) atomicMax(&most, iters);
+          if (fail) atomicOr(w + T_FAILED, 1);
+          if (goes_on) atomicOr(w + T_LIVE, 1);
+          if (stepped) atomicMax(w + T_MOST, iters);
         }
       }
-      __syncthreads();
-      const bool any_failed = failed != 0, any_live = live != 0;
-      const int last = min(most, CJR ? prm.cjr : prm.mcs);
-      __syncthreads();
+      kc.drain(lane);
+      cluster.sync();
+      const bool any_failed = w[T_FAILED] != 0, any_live = w[T_LIVE] != 0;
+      const int last = min(w[T_MOST], CJR ? prm.cjr : prm.mcs);
+      if (leader && threadIdx.x < T_WORDS)
+        words[(gs + 2) % 3][threadIdx.x] = 0;
+      ++gs;
       handoff = !any_failed;
       if (!any_live) break;
       if (!handoff || last < 2) continue;
       // The tile's last full corrector iteration at each final point of a
       // path that stopped before it (fused.handoff_refactor).
-      if (threadIdx.x == 0) next = 0;
-      __syncthreads();
       for (;;) {
         int i = 0;
-        if (lane == 0) i = atomicAdd(&next, 1);
+        if (lane == 0) i = atomicAdd(w + T_REDO, 1);
         i = __shfl_sync(FULL, i, 0);
         if (i >= count) break;
         const int path = first + i;
-        const int c = kept_it[path];
+        const int c = __ldcg(kept_it + path);
         if (c == 0 || c >= last) continue;
-        const PathState ps = load_path(x, xl, flags, path, lane);
+        const PathState ps = load_path_l2(x, xl, flags, path, lane);
         if (finished(ps, prm)) continue;
         float2 e[2], f[2], g[2];
         load_coefs(efg, q_n, path, lane, e, f, g);
+        kc.reuse(lane);
         refactor(s, keep, plan, e, f, g, ps, q_n, lane);
-        save_elimination(s, keep, kept_m + (size_t)path * NV * W,
-                         kept_piv + (size_t)path * 32,
-                         kept_f + (size_t)path * FSLOTS, lane);
+        kc.save(s, keep, kept + (size_t)path * KEPT_BYTES, lane);
       }
-      __syncthreads();
+      kc.drain(lane);
+      cluster.sync();
     }
   }
+  cluster.sync();  // no block leaves while another may read the leader
+}
+
+// The launch of the tiled tracker: `grid` blocks in clusters of
+// `cluster` (the cluster's size a launch attribute).
+struct TileLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+
+  TileLaunch(int grid, int cluster, cudaStream_t stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(32 * TILE_WARPS);
+    cfg.dynamicSmemBytes = TILE_SMEM;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  TileLaunch(const TileLaunch&) = delete;
+};
+
+// A call's error code, the error cleared if the runtime refused the call
+// (so that no later cudaGetLastError() reports it).
+int refused(cudaError_t err) {
+  if (err != cudaSuccess) cudaGetLastError();
+  return (int)err;
 }
 #endif
 
@@ -1229,15 +1443,13 @@ cudaError_t phase_launch(const void* x, const void* efg, const void* plan,
   X(PH_EVASM) X(PH_ELIM) X(PH_ELIMFAM) X(PH_ELIMTAIL) X(PH_BACK)           \
   X(PH_EVSOLVE) X(PH_REPLAY)
 
-// A tracker kernel's dynamic shared memory (a replaying build's
-// multipliers), allowed above the default limit, and the largest
-// shared-memory carveout.
+// A tracker kernel's dynamic shared memory (`smem` bytes) allowed above
+// the default limit, and the largest shared-memory carveout.
 template <typename K>
-cudaError_t configure(K kernel, int* smem) {
-  *smem = REPLAY ? WARPS * FSLOTS * (int)sizeof(float2) : 0;
-  if (REPLAY) {
+cudaError_t configure(K kernel, int smem) {
+  if (smem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   return cudaFuncSetAttribute(kernel,
@@ -1245,7 +1457,18 @@ cudaError_t configure(K kernel, int* smem) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-cudaError_t configure_track(int* smem) { return configure(hc_track_kernel, smem); }
+// hc_track_kernel's dynamic shared memory (a replaying build's
+// multipliers), configured.
+cudaError_t configure_track(int* smem) {
+  *smem = REPLAY ? WARPS * FSLOTS * (int)sizeof(float2) : 0;
+  return configure(hc_track_kernel, *smem);
+}
+
+#if HC_CPH
+cudaError_t configure_tile() {
+  return configure(hc_track_tile_kernel, TILE_SMEM);
+}
+#endif
 
 }  // namespace
 
@@ -1255,17 +1478,18 @@ cudaError_t configure_track(int* smem) { return configure(hc_track_kernel, smem)
 // (the handoff build only) hc_track_tile_kernel; returns a CUDA error code
 // (0 = success).
 extern "C" int hc_track_blocks_per_sm(int tile, int* blocks, int* warps) {
-  int smem = 0;
   *warps = WARPS;
 #if HC_CPH
   if (tile > 1) {
-    const cudaError_t err = configure(hc_track_tile_kernel, &smem);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, hc_track_tile_kernel, 32 * WARPS, smem);
+    *warps = TILE_WARPS;
+    const cudaError_t err = configure_tile();
+    if (err != cudaSuccess) return refused(err);
+    return refused(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, hc_track_tile_kernel, 32 * TILE_WARPS, TILE_SMEM));
   }
 #endif
   if (tile != 1) return (int)cudaErrorInvalidValue;
+  int smem = 0;
   cudaError_t err = configure_track(&smem);
   if (err != cudaSuccess) return (int)err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, hc_track_kernel,
@@ -1273,21 +1497,42 @@ extern "C" int hc_track_blocks_per_sm(int tile, int* blocks, int* warps) {
   return (int)err;
 }
 
-// Launch `blocks` persistent blocks on `stream`, taking paths (tiles of
-// `tile` paths when tile > 1, the handoff build only) from the int32
-// counter *next_path (zero at launch); kept_m, kept_piv, kept_f, kept_it
-// hold n_paths x (NV * W float2, 32 int, FSLOTS float2, 1 int) for the
-// tiled handoff (unused at tile 1).  Returns cudaGetLastError() (0 = launched), or -1 if
-// the step variant asked for is not the one this library was built as.
+// Clusters of `cluster` blocks of the tiled tracker (the handoff build
+// only) resident at once on the current device
+// (cudaOccupancyMaxActiveClusters); returns a CUDA error code (0 =
+// success), the runtime's refusal of a cluster size among them.
+extern "C" int hc_track_tile_clusters(int cluster, int* clusters) {
+#if HC_CPH
+  if (cluster < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = configure_tile();
+  if (err != cudaSuccess) return refused(err);
+  TileLaunch l(cluster, cluster, 0);
+  return refused(
+      cudaOccupancyMaxActiveClusters(clusters, hc_track_tile_kernel, &l.cfg));
+#else
+  (void)cluster;
+  *clusters = 0;
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+// Launch `blocks` persistent blocks on `stream`, taking paths from the
+// int32 counter *next_path (zero at launch): at tile 1 hc_track_kernel,
+// at tile > 1 (the handoff build only) hc_track_tile_kernel, taking tiles
+// of `tile` paths, in clusters of `cluster` blocks (`blocks` a multiple
+// of it), with `kept` (n_paths x KEPT_BYTES, 16-byte aligned) and kept_it
+// (n_paths int32) for the kept eliminations (unused at tile 1).  Returns
+// the launch's CUDA error code (0 = launched; a refused cluster size
+// among the errors), or -1 if the step variant asked for is not the one
+// this library was built as.
 extern "C" int hc_track_launch(void* x, void* xl, void* flags, const void* efg,
                                const void* plan, int n_paths, int niter,
                                int mcs, int steps_inc, int truncate,
                                float ez_factor, float t_eps, float tol_sq,
                                float inf_sq, int order, int cjr, int cph,
                                int rkj, int split2, int abc, int tile,
-                               void* kept_m, void* kept_piv, void* kept_f,
-                               void* kept_it, int blocks, void* next_path,
-                               void* stream) {
+                               void* kept, void* kept_it, int blocks,
+                               int cluster, void* next_path, void* stream) {
   if (order != ORDER || (cjr > 0) != CJR || (cph != 0) != CPH ||
       (rkj != 0) != RKJ || (split2 != 0) != SPLIT2 || (abc != 0) != ABC ||
       tile < 1 || (tile > 1 && !CPH))
@@ -1296,18 +1541,21 @@ extern "C" int hc_track_launch(void* x, void* xl, void* flags, const void* efg,
   if (blocks <= 0) return (int)cudaErrorInvalidConfiguration;
   Params prm{niter, mcs, steps_inc, truncate, ez_factor, t_eps, tol_sq, inf_sq,
              cjr};
-  int smem = 0;
 #if HC_CPH
   if (tile > 1) {
-    const cudaError_t err = configure(hc_track_tile_kernel, &smem);
-    if (err != cudaSuccess) return (int)err;
-    hc_track_tile_kernel<<<blocks, 32 * WARPS, smem, (cudaStream_t)stream>>>(
-        (float2*)x, (float2*)xl, (float*)flags, (const float2*)efg,
-        (const int*)plan, n_paths, prm, tile, (float2*)kept_m,
-        (int*)kept_piv, (float2*)kept_f, (int*)kept_it, (int*)next_path);
-    return (int)cudaGetLastError();
+    if (cluster < 1 || blocks % cluster != 0)
+      return (int)cudaErrorInvalidConfiguration;
+    const cudaError_t err = configure_tile();
+    if (err != cudaSuccess) return refused(err);
+    TileLaunch l(blocks, cluster, (cudaStream_t)stream);
+    const int launched = refused(cudaLaunchKernelEx(
+        &l.cfg, hc_track_tile_kernel, (float2*)x, (float2*)xl, (float*)flags,
+        (const float2*)efg, (const int*)plan, n_paths, prm, tile,
+        (char*)kept, (int*)kept_it, (int*)next_path));
+    return launched ? launched : (int)cudaGetLastError();
   }
 #endif
+  int smem = 0;
   const cudaError_t err = configure_track(&smem);
   if (err != cudaSuccess) return (int)err;
   hc_track_kernel<<<blocks, 32 * WARPS, smem, (cudaStream_t)stream>>>(

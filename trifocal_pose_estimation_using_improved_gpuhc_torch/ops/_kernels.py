@@ -18,7 +18,10 @@ stages' 2-term split of eval_precision "split3_rk2" and the pair basis
 choices: one library per variant, built when a configuration first needs
 it.  eval_structure picks no build: its values are one function here.
 The handoff build also holds the tiled tracker, launched for
-predictor_handoff at HCConfig.tile > 1 (the tile is a launch argument).
+predictor_handoff at HCConfig.tile > 1 (the tile is a launch argument):
+a tile runs on a thread-block cluster, its size and the persistent grid
+chosen per launch by ``tile_launch`` from the tiles and the clusters the
+card holds at once (``hc_track_tile_clusters``, the occupancy query).
 
 ``hc_phase`` launches one of the same source's phase kernels (K1's pieces
 alone, ``ops/phases.py``) in the build of a configuration and counts its
@@ -34,7 +37,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -165,11 +168,14 @@ def _hc_track_lib(cfg: HCConfig) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, f, f, f, f, i, i, i, i,
-                       i, i, i, p, p, p, p, i, p, p]
+                       i, i, i, p, p, i, i, p, p]
         fn.restype = ctypes.c_int
         occ = lib.hc_track_blocks_per_sm
         occ.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
         occ.restype = ctypes.c_int
+        clusters = lib.hc_track_tile_clusters
+        clusters.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        clusters.restype = ctypes.c_int
     return lib
 
 
@@ -214,19 +220,124 @@ def hc_track_blocks_per_sm(cfg: HCConfig, device=None) -> int:
 
 
 def _grid(lib: ctypes.CDLL, device: torch.device, n_paths: int,
-          blocks: Optional[int], tile: int = 1) -> int:
-    """The persistent grid of a launch over n_paths: ``blocks``, by
-    default the SMs times the tracker's resident blocks per SM in this
-    build; never more than the paths need (a block a tile when tile > 1,
-    the tiled tracker's)."""
-    per_sm, warps = _occupancy_of(lib, device, tile)
-    need = -(-n_paths // (tile if tile > 1 else warps))
+          blocks: Optional[int]) -> int:
+    """The persistent grid of a per-path launch over n_paths: ``blocks``,
+    by default the SMs times the tracker's resident blocks per SM in this
+    build; never more than the paths need."""
+    per_sm, warps = _occupancy_of(lib, device)
+    need = -(-n_paths // warps)
     if blocks is None:
         blocks = torch.cuda.get_device_properties(
             device).multi_processor_count * per_sm
     if blocks <= 0:
         raise ValueError(f"blocks must be positive, got {blocks}")
     return min(int(blocks), need)
+
+
+# The portable cluster size: a larger cluster needs the kernel's
+# non-portable attribute, which the tiled tracker does not set.
+MAX_CLUSTER = 8
+# The tiled tracker's paths per warp and step, when the card is full: a
+# tile takes tile / PATHS_PER_WARP warps (PERF.md, PR 12: fewer warps make
+# a tile a long chain of path-steps, more leave them idle at the step's
+# barrier).
+PATHS_PER_WARP = 4
+# The kept elimination of a path in device memory (csrc KEPT_BYTES): the
+# 30 x 32 complex system, 32 int32 pivots and FSLOTS complex multipliers.
+KEPT_BYTES = 30 * 32 * 8 + 32 * 4 + FSLOTS * 8
+
+
+def tile_launch(n_paths: int, tile: int, warps: int,
+                resident: Mapping[int, int]) -> Tuple[int, int]:
+    """(cluster, grid) of a launch of the tiled tracker over ``n_paths``
+    in tiles of ``tile`` paths: a tile runs on a cluster of ``cluster``
+    blocks of ``warps`` warps, and the persistent grid is ``grid`` blocks,
+    whole clusters, never more than the tiles need nor than the card holds
+    at once.  ``resident`` maps a cluster size to the clusters of it the
+    card holds at once (the occupancy query; a size it lacks or holds none
+    of is not taken).
+
+    Every step of a tile waits at a barrier for its slowest warp.  The
+    cluster is the size that gives each warp about ``PATHS_PER_WARP`` of
+    the tile's paths a step, or, when the tiles are too few for the card,
+    the largest size under which every tile is in flight at once (each
+    tile then has more warps, the launch lasting as long as its slowest
+    tile); at most ``MAX_CLUSTER``, and no more warps than the tile has
+    paths.  Raises RuntimeError if no size fits."""
+    if n_paths < 0 or tile < 1 or warps < 1:
+        raise ValueError(f"bad launch: {n_paths} paths, tile {tile}, "
+                         f"{warps} warps")
+    tiles = -(-n_paths // tile)
+    sizes = [c for c in range(1, min(MAX_CLUSTER, -(-tile // warps)) + 1)
+             if resident.get(c, 0) > 0]
+    if not sizes:
+        raise RuntimeError("no cluster of the tiled tracker fits on this "
+                           "device")
+    base = -(-tile // (PATHS_PER_WARP * warps))
+    cluster = max([c for c in sizes if c <= base] + [sizes[0]]
+                  + [c for c in sizes if resident[c] >= tiles])
+    return cluster, cluster * min(tiles, resident[cluster])
+
+
+# (library, device index) -> {cluster size: resident clusters}
+_clusters: dict = {}
+
+
+def _resident_clusters(lib: ctypes.CDLL, device: torch.device,
+                       sizes: Sequence[int]) -> Dict[int, int]:
+    """{cluster size: clusters of the tiled tracker the card holds at
+    once} for each of ``sizes`` (the occupancy query, cached); raises if
+    the runtime refuses a size."""
+    got = _clusters.setdefault((lib._name, device.index), {})
+    for c in sizes:
+        if c not in got:
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = lib.hc_track_tile_clusters(int(c), ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"hc_track: a cluster of {c} blocks of the "
+                                   f"tiled tracker is refused: CUDA error "
+                                   f"{err}")
+            got[c] = n.value
+    return {c: got[c] for c in sizes}
+
+
+def hc_track_tile_clusters(cfg: HCConfig, device=None) -> Dict[int, int]:
+    """{cluster size 1..MAX_CLUSTER: clusters of the tiled tracker (the
+    handoff build's, ``cfg`` at a tile above 1) the card ``device``
+    (default the current CUDA device) holds at once}: the occupancy query
+    ``tile_launch`` chooses from."""
+    if _tile_of(cfg) == 1:
+        raise ValueError("the tiled tracker runs under predictor_handoff at "
+                         "a tile above 1")
+    dev = torch.device("cuda", torch.cuda.current_device()) if device is None \
+        else torch.device(device)
+    return _resident_clusters(_hc_track_lib(cfg), dev,
+                              range(1, MAX_CLUSTER + 1))
+
+
+def _tile_grid(lib: ctypes.CDLL, device: torch.device, n_paths: int,
+               tile: int, blocks: Optional[int],
+               cluster: Optional[int]) -> Tuple[int, int]:
+    """(cluster, grid) of a tiled launch: ``tile_launch``'s, or for a
+    given ``cluster`` every tile the card holds at once in clusters of it;
+    ``blocks`` caps the grid (whole clusters, at least one)."""
+    warps = _occupancy_of(lib, device, tile)[1]
+    if cluster is None:
+        cluster, grid = tile_launch(
+            n_paths, tile, warps,
+            _resident_clusters(lib, device, range(1, MAX_CLUSTER + 1)))
+    else:
+        r = _resident_clusters(lib, device, [cluster])[cluster]
+        if r <= 0:
+            raise RuntimeError(f"hc_track: no cluster of {cluster} blocks of "
+                               f"the tiled tracker fits on this device")
+        grid = cluster * min(-(-n_paths // tile), r)
+    if blocks is not None:
+        if blocks <= 0:
+            raise ValueError(f"blocks must be positive, got {blocks}")
+        grid = min(grid, cluster * max(1, int(blocks) // cluster))
+    return cluster, grid
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -243,7 +354,8 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
              efg: torch.Tensor, plan: torch.Tensor, niter: int,
-             cfg: HCConfig, blocks: Optional[int] = None) -> None:
+             cfg: HCConfig, blocks: Optional[int] = None,
+             cluster: Optional[int] = None) -> None:
     """Run up to ``niter`` HC steps per path in place on CUDA tensors, in
     the step variant of ``cfg``.
 
@@ -257,11 +369,14 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     paths need), each warp taking paths from a counter zeroed per launch
     until none is left.  Under ``predictor_handoff`` at ``cfg.tile`` > 1
     the launch is the tiled tracker's (``hc_track_tile_kernel``): each
-    block takes tiles of ``cfg.tile`` consecutive paths from the counter,
-    and a path's last corrector elimination is kept in device memory
-    between steps with its corrector iterations (10,628 bytes a path,
-    allocated here per launch).  The result does not depend on
-    ``blocks``."""
+    cluster of blocks takes tiles of ``cfg.tile`` consecutive paths from
+    the counter, the cluster's size and the grid ``tile_launch``'s (a
+    ``cluster`` given here overrides it, and ``blocks`` caps the grid), and
+    a path's last corrector elimination is kept in device memory between
+    steps with its corrector iterations (10,628 bytes a path, allocated
+    here per launch).  If the runtime refuses the cluster or its occupancy
+    query, this raises.  The result does not depend on ``blocks`` or
+    ``cluster``."""
     B = x.shape[0]
     q = efg.shape[-1]
     if efg.dim() != 3 or not 0 < q <= 64:
@@ -279,17 +394,22 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
     # Header word 3 counts the row-map levels: the schedule program has none.
     if rkj and int(plan[3]) != 0:
         raise ValueError("rk_jacobian_reuse runs the schedule program only")
-    lib = _hc_track_lib(cfg)
     tile = _tile_of(cfg)
-    blocks = _grid(lib, x.device, B, blocks, tile)
+    if cluster is not None and tile == 1:
+        raise ValueError("cluster is taken by the tiled tracker only "
+                         "(predictor_handoff at a tile above 1)")
+    lib = _hc_track_lib(cfg)
+    if tile > 1:
+        cluster, blocks = _tile_grid(lib, x.device, B, tile, blocks, cluster)
+    else:
+        cluster, blocks = 1, _grid(lib, x.device, B, blocks)
     next_path = torch.zeros(1, dtype=torch.int32, device=x.device)
-    # The kept eliminations of the tiled handoff: the system with its
-    # pivot rows, the pivots and the multipliers (the kernel's NV x W,
-    # 32 and FSLOTS per path), and each path's corrector iterations.
-    kept = [torch.empty((B if tile > 1 else 0, n), dtype=dt,
-                        device=x.device)
-            for n, dt in ((30 * 32, torch.complex64), (32, torch.int32),
-                          (FSLOTS, torch.complex64), (1, torch.int32))]
+    # The kept eliminations of the tiled handoff (KEPT_BYTES a path) and
+    # each path's corrector iterations.
+    kept = torch.empty((B if tile > 1 else 0, KEPT_BYTES // 4),
+                       dtype=torch.int32, device=x.device)
+    kept_it = torch.empty(B if tile > 1 else 0, dtype=torch.int32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.hc_track_launch(
@@ -299,13 +419,14 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
             float(cfg.end_zone_factor), float(cfg.t_converged_eps),
             float(cfg.corrector_tol_sq), float(cfg.infinity_norm_sq),
             order, int(cfg.corrector_jacobian_reuse), cph, rkj, split2, abc,
-            tile, *(k.data_ptr() for k in kept), blocks,
+            tile, kept.data_ptr(), kept_it.data_ptr(), blocks, cluster,
             next_path.data_ptr(), stream)
     if err == -1:
         raise RuntimeError(f"{hc_track_label(cfg)} is not the variant its "
                            f"library was built as")
     if err != 0:
-        raise RuntimeError(f"hc_track launch failed: CUDA error {err}")
+        raise RuntimeError(f"hc_track launch failed (tile {tile}, cluster "
+                           f"{cluster}, grid {blocks}): CUDA error {err}")
     hc_track.launches += 1
 
 
