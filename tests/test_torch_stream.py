@@ -86,6 +86,23 @@ def _patched(monkeypatch, hyps, jax_too=False, **ransac_kw):
                                    **ransac_kw))
 
 
+def _check_view_spans(results):
+    """Each view's spans: ``view`` from its first dispatch to its selection
+    read, holding its runs' segment spans, all in order; track_ms is
+    ``view``'s duration.  The views are dispatched in order."""
+    starts = []
+    for r in results:
+        vn, v0, v1, vp = r.spans[0]
+        assert (vn, vp) == ("view", -1) and v0 <= v1
+        assert [s[1] for s in r.spans] == sorted(s[1] for s in r.spans)
+        for name, s, e, parent in r.spans[1:]:
+            assert name.startswith("segment.") and parent == 0
+            assert v0 <= s <= e <= v1
+        assert abs(r.track_ms - (v1 - v0) * 1e-6) <= 1e-3
+        starts.append(v0)
+    assert starts == sorted(starts)
+
+
 def _same_counts(r, rr):
     assert (dataclasses.astuple(r.stats) == dataclasses.astuple(rr.stats))
     assert r.num_candidates == rr.num_candidates
@@ -107,6 +124,7 @@ def test_stream_equals_round_per_view(monkeypatch, knobs):
     views = [0, 1, 2]
     results, vps = port.run_stream(views, num_hypotheses=_H)
     assert len(results) == len(views) and vps > 0
+    _check_view_spans(results)
     for vi, r in zip(views, results):
         rr = port.run_round(port.load_view(vi), 0, _H)
         _same_counts(r, rr)
@@ -132,6 +150,7 @@ def test_stream_abort_equals_abort_round_per_view(monkeypatch, case):
     port = engine.TrifocalPoseEngine(cfg, device="cpu")
     results, vps = port.run_stream(views, num_hypotheses=_H)
     assert len(results) == len(views) and vps > 0
+    _check_view_spans(results)
     for vi, r in zip(views, results):
         rr = port.run_round(port.load_view(vi), 0, _H)
         assert r.chunks_run == rr.chunks_run == (1 if case == "hit" else 2)

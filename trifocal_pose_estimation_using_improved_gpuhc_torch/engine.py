@@ -73,7 +73,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
 from trifocal_pose_estimation_using_improved_gpuhc_torch.parallel import (
     mesh as pmesh,
 )
-from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import data_io
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import data_io, spans
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import evaluation as evl
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     EngineConfig,
@@ -127,6 +127,10 @@ class RoundResult:
     # converged, 0 steps).  Its flags and steps are the arrays above, not
     # copies of them.
     solutions: Optional[fused.TrackResult] = None
+    # The request's spans (name, start_ns, end_ns, parent index) and
+    # counters (``utils/spans``): run_round's round, run_stream's view.
+    spans: list = dataclasses.field(default_factory=list)
+    counts: dict = dataclasses.field(default_factory=dict)
 
 
 class _OneCall:
@@ -278,40 +282,64 @@ class TrifocalPoseEngine:
         """One round.  collect_solutions: also return every path's solution
         (``RoundResult.solutions``), the candidates' fundamental matrices
         and the residuals' minima; the tracking and its track_ms are the
-        same."""
+        same.
+
+        The round's spans, nested so: ``round`` (its self time the tail)
+        holds ``round.sample`` (sampling, targets), ``round.stage`` (the
+        device copies and the synchronisation before the timed part),
+        ``round.track`` (track_ms: the segment spans of ``ops/segmented``,
+        in a ``round.chunk`` per abort chunk; in a plain round then
+        ``round.unpack``, the synchronisation that waits for the unpacked
+        paths) and ``round.score`` (``score.readback``,
+        ``score.supports``); total_ms is ``round.track`` and
+        ``round.score``.  Counters, in abort rounds: ``scored_paths`` and
+        ``score_slots``.  The last rounds' spans and counters are also kept
+        in ``utils/spans.finished``."""
+        rec = spans.Recorder()
+        try:
+            with spans.recording(rec), spans.span("round"):
+                rr = self._round(view, seed, num_hypotheses,
+                                 collect_solutions)
+        finally:  # a round that raised keeps its place in the log
+            kept = spans.keep(rec)
+        rr.spans, rr.counts = kept
+        return rr
+
+    def _round(self, view: data_io.RansacView, seed: int,
+               num_hypotheses: Optional[int], collect: bool) -> RoundResult:
         cfg = self.cfg
         H = num_hypotheses or cfg.ransac.num_iterations
         Hp = self._whole_shards(H)
         T = self.problem.num_tracks
-        dev = self.device
 
-        samples = ransac.sample_edgel_triplets(
-            seed, view.edge_locations.shape[0], Hp)
-        tgt = ransac.build_target_params(
-            view.edge_locations, view.edge_tangents, samples)
-        edgels = torch.as_tensor(view.edge_locations, device=dev)
+        with spans.span("round.sample"):
+            samples = ransac.sample_edgel_triplets(
+                seed, view.edge_locations.shape[0], Hp)
+            tgt = ransac.build_target_params(
+                view.edge_locations, view.edge_tangents, samples)
         if self._abort:
-            return self._abort_round(view, tgt, H, edgels, collect_solutions)
+            return self._abort_round(view, tgt, H, collect)
         # Staging sits outside the timed span, as in the reference.
-        tgt_d = torch.as_tensor(tgt, device=dev).repeat_interleave(T, dim=0)
-        x0 = self._start.repeat(Hp, 1)
-        self._sync()
+        with spans.span("round.stage"):
+            edgels = torch.as_tensor(view.edge_locations, device=self.device)
+            tgt_d = torch.as_tensor(tgt, device=self.device
+                                    ).repeat_interleave(T, dim=0)
+            x0 = self._start.repeat(Hp, 1)
+            self._sync()
 
-        t_start = time.perf_counter()
-        res = self.track(x0, tgt_d)
-        if self._segmented:
-            res = res.track
-        self._sync()
-        t_track = time.perf_counter()
+        with spans.span("round.track") as track:
+            res = self.track(x0, tgt_d)
+            if self._segmented:
+                res = res.track
+            with spans.span("round.unpack"):
+                self._sync()
         if Hp != H:
             res = fused.TrackResult(**{
                 f.name: getattr(res, f.name)[:H * T]
                 for f in dataclasses.fields(res)})
-        return self._result(view, res, edgels, collect_solutions, t_start,
-                            t_track)
+        return self._result(track, view, res, edgels, collect)
 
     def _abort_round(self, view, tgt: np.ndarray, H: int,
-                     edgels: torch.Tensor,
                      collect_solutions: bool = False) -> RoundResult:
         """TrunRANSAC: the hypotheses in chunks of abort_chunk, stopping at
         the first chunk whose tracking found a pose (engine.py:401-534 of
@@ -327,18 +355,20 @@ class TrifocalPoseEngine:
         n_edgels = view.edge_locations.shape[0]
         chunk_h = self._whole_shards(min(cfg.ransac.abort_chunk, Hp))
         n_chunks = -(-Hp // chunk_h)
-        x0 = self._start.repeat(chunk_h, 1)
-        chunks = self._chunk_targets(tgt, chunk_h)
-        self._sync()
+        with spans.span("round.stage"):
+            edgels = torch.as_tensor(view.edge_locations, device=self.device)
+            x0 = self._start.repeat(chunk_h, 1)
+            chunks = self._chunk_targets(tgt, chunk_h)
+            self._sync()
 
-        t_start = time.perf_counter()
-        results = []
-        for tg in chunks:
-            res = self.track(x0, tg, edgels, self._k, n_edgels)
-            results.append(res.track)
-            if res.found:
-                break
-        t_track = time.perf_counter()
+        with spans.span("round.track") as track:
+            results = []
+            for tg in chunks:
+                with spans.span("round.chunk"):
+                    res = self.track(x0, tg, edgels, self._k, n_edgels)
+                results.append(res.track)
+                if res.found:
+                    break
 
         per = chunk_h * T
 
@@ -352,8 +382,8 @@ class TrifocalPoseEngine:
             x=whole("x", 0), converged=whole("converged", False),
             inf_fail=whole("inf_fail", False),
             pruned=whole("pruned", False), num_steps=whole("num_steps", 0))
-        return self._result(view, res, edgels, collect_solutions, t_start,
-                            t_track, chunks_run=len(results))
+        return self._result(track, view, res, edgels, collect_solutions,
+                            chunks_run=len(results))
 
     def _chunk_targets(self, tgt: np.ndarray, chunk_h: int) -> list:
         """The hypotheses' targets in chunks of chunk_h, each repeated per
@@ -383,10 +413,11 @@ class TrifocalPoseEngine:
         rc = self.cfg.ransac
         n_edgels = view.edge_locations.shape[0]
         real, cand = self._masks(res)
-        rows = torch.stack(
-            [a.to(torch.int32) for a in (res.converged, res.inf_fail,
-                                         res.pruned, real, cand)]
-            + [res.num_steps.to(torch.int32)]).cpu().numpy()
+        with spans.span("score.readback"):
+            rows = torch.stack(
+                [a.to(torch.int32) for a in (res.converged, res.inf_fail,
+                                             res.pruned, real, cand)]
+                + [res.num_steps.to(torch.int32)]).cpu().numpy()
         conv_m, inf_m, pruned_m, real_m, cand_m = rows[:5].astype(bool)
         steps = rows[5]
         out = dict(
@@ -407,7 +438,8 @@ class TrifocalPoseEngine:
         if not n_cand:
             return out
         xs = res.x.real[torch.as_tensor(cand_idx, device=res.x.device)]
-        n21, n31 = torch.stack(self._supports(xs, edgels)).cpu().numpy()
+        with spans.span("score.supports"):
+            n21, n31 = torch.stack(self._supports(xs, edgels)).cpu().numpy()
         poses = trifocal.solution_to_pose(xs)
         bi = int(np.argmax(np.minimum(n21, n31)))
         best21, best31 = int(n21[bi]), int(n31[bi])
@@ -442,15 +474,16 @@ class TrifocalPoseEngine:
                    min_residuals=min_res, any_within_gt=any_gt)
         return out
 
-    def _result(self, view, res: fused.TrackResult, edgels: torch.Tensor,
-                collect: bool, t_start: float, t_track: float,
+    def _result(self, track: int, view, res: fused.TrackResult,
+                edgels: torch.Tensor, collect: bool,
                 **chunks) -> RoundResult:
-        """A round's result: ``_score_round`` and the round's times."""
-        fields = self._score_round(view, res, edgels, collect)
-        t_end = time.perf_counter()
+        """A round's result: ``_score_round`` and the round's times, from
+        its ``round.track`` span (index ``track``) and ``round.score``."""
+        with spans.span("round.score") as score:
+            fields = self._score_round(view, res, edgels, collect)
         return RoundResult(
-            track_ms=(t_track - t_start) * 1e3,
-            total_ms=(t_end - t_start) * 1e3,
+            track_ms=spans.ns(track) * 1e-6,
+            total_ms=(spans.ns(track) + spans.ns(score)) * 1e-6,
             num_edgels=view.edge_locations.shape[0], **fields, **chunks)
 
     # -- streamed recovery ---------------------------------------------------
@@ -474,7 +507,9 @@ class TrifocalPoseEngine:
         then is the view's 39-float selection read back (``Readback``).  So
         per-path step counts stay on the card: ``num_steps`` is empty and
         ``actual_sol_steps`` holds the best path's steps.  track_ms is a
-        view's latency from its dispatch to its selection on the host.
+        view's latency from its dispatch to its selection on the host: its
+        ``view`` span (each view's recorder, ``utils/spans``, holds it, its
+        runs' segment spans and their counters).
 
         With ``abort_by_good_sol`` the views' hypotheses run in chunks of
         ``stream_abort_chunk`` (a ragged tail repeats the chunk's first
@@ -519,7 +554,8 @@ class TrifocalPoseEngine:
         best = [None] * nv                   # the best chunk's selection
         chunks_run = [0] * nv
         decided = [False] * nv
-        t_first, t_done = [0.0] * nv, [0.0] * nv
+        recs = [spans.Recorder() for _ in range(nv)]
+        view_span = [-1] * nv
 
         t0 = time.perf_counter()
 
@@ -530,22 +566,28 @@ class TrifocalPoseEngine:
                     continue
                 if prep[i] is None:
                     prep_view(i)
+                rec = recs[i]
                 if ci == 0:
-                    t_first[i] = time.perf_counter()
+                    view_span[i] = rec.open("view")
                 view, chunks, edgels = prep[i]
-                run = self._begin(x0, chunks[ci], edgels,
-                                  view.edge_locations.shape[0])
-                run.advance()
+                with spans.recording(rec):
+                    run = self._begin(x0, chunks[ci], edgels,
+                                      view.edge_locations.shape[0])
+                    run.advance()
                 inflight.append((i, ci, run))
 
         pump()
         while inflight:
             i, ci, run = inflight.popleft()
-            if run.keep():
-                run.advance()
+            with spans.recording(recs[i]):
+                more = run.keep()
+                if more:
+                    run.advance()
+                else:
+                    res = run.track_result()
+            if more:
                 inflight.append((i, ci, run))
                 continue
-            res = run.track_result()
             real, cand, n21, n31 = self._device_score(res, prep[i][2])
             pending = segmented.Readback(self._device_select(
                 res.x.real, res.converged, res.inf_fail, real, cand, n21,
@@ -562,13 +604,13 @@ class TrifocalPoseEngine:
                    and sel[5] >= ratio * n_e)
             if hit or ci + 1 >= n_chunks or real_h(ci + 1) == 0:
                 decided[i] = True
-                t_done[i] = time.perf_counter()
+                recs[i].close(view_span[i])
             else:
                 queue.appendleft((i, ci + 1))
                 pump()
 
         results = [self._stream_result(prep[i][0], sums[i], best[i], H * T,
-                                       t_done[i] - t_first[i], chunks_run[i])
+                                       recs[i], view_span[i], chunks_run[i])
                    for i in range(nv)]
         return results, nv / (time.perf_counter() - t0)
 
@@ -581,9 +623,10 @@ class TrifocalPoseEngine:
         return self.track.begin(x0, tgt)
 
     def _stream_result(self, view, counts, sel, num_paths: int,
-                       seconds: float, chunks_run: int) -> RoundResult:
-        """A streamed view's RoundResult from its summed counts and its best
-        chunk's selection."""
+                       rec: spans.Recorder, view_span: int,
+                       chunks_run: int) -> RoundResult:
+        """A streamed view's RoundResult from its summed counts, its best
+        chunk's selection and its recorder (track_ms: the ``view`` span)."""
         n_e = view.edge_locations.shape[0]
         ratio = self.cfg.ransac.pass_inlier_support_ratio
         n_cand = int(counts[3])
@@ -603,8 +646,10 @@ class TrifocalPoseEngine:
             stats=evl.SolutionStats(
                 num_converged=int(counts[0]), num_infinity=int(counts[1]),
                 num_real=int(counts[2]), num_paths=num_paths),
-            track_ms=seconds * 1e3, total_ms=seconds * 1e3,
+            track_ms=rec.ns(view_span) * 1e-6,
+            total_ms=rec.ns(view_span) * 1e-6,
             num_candidates=n_cand, best_support21=b21, best_support31=b31,
             num_edgels=n_e, found_pose=found, pose_errors=perr,
             best_pose=pose, num_steps=np.zeros(0, np.int32),
-            actual_sol_steps=actual_steps, chunks_run=chunks_run)
+            actual_sol_steps=actual_steps, chunks_run=chunks_run,
+            spans=rec.spans_out(), counts=rec.counts)

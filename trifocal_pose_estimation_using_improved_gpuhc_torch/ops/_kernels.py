@@ -459,11 +459,7 @@ def hc_solve_replay(m: torch.Tensor, rhs: torch.Tensor, plan: torch.Tensor
                  plan.data_ptr(), A, stream)
     if err != 0:
         raise RuntimeError(f"hc_solve_replay launch failed: CUDA error {err}")
-    hc_solve_replay.launches += 1
     return xs, xr
-
-
-hc_solve_replay.launches = 0
 
 
 # The phase kernels of csrc/hc_track.cu, in its Phase order.

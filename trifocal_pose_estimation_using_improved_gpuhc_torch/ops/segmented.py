@@ -38,6 +38,13 @@ segment's work and waited for by an event, which is cheap on a local
 card.  ``parallel/mesh.py`` drives one run per shard of the hypotheses
 and reduces the loop test across them at every boundary, as the JAX
 package's ``axis_name`` branches do.
+
+Each run records, in the current request's recorder (``utils/spans``;
+nothing without one), a ``segment.launch`` (the segment's launch queued),
+a ``segment.boundary`` (scoring, compaction, the loop test queued) and a
+``segment.wait`` (the loop test waited for) span per segment; an abort
+run's ``outcome`` also records the counters ``scored_paths`` and
+``score_slots``.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 
 from trifocal_pose_estimation_using_improved_gpuhc_torch.models import trifocal
 from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused, ransac
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import spans
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     HCConfig,
     RansacConfig,
@@ -168,6 +176,13 @@ class _Run:
         self.launches = 0  # this run's kernel launches
 
     def advance(self) -> None:
+        with spans.span("segment.launch"):
+            self._launch()
+        with spans.span("segment.boundary"):
+            self._boundary()
+
+    def _launch(self) -> None:
+        """The next segment, queued."""
         tr, hc = self.tr, self.tr.hc
         niter = min(tr.seg, tr.budget - self.si * tr.seg)
         n = self.n_live
@@ -179,6 +194,10 @@ class _Run:
             tr.kernels.hc_track(self.x[:n], self.xl[:n], self.fl[:n],
                                 self.efg[:n], self.aux, niter, hc)
             self.launches += 1
+
+    def _boundary(self) -> None:
+        """The boundary's scoring and packing, and its loop test, queued."""
+        tr, hc = self.tr, self.tr.hc
         if tr.abort:
             self._score_new()
         if hc.compact_survivors:
@@ -196,7 +215,8 @@ class _Run:
     def poll(self) -> tuple:
         """(this run's loop test without the found flag, the found flag):
         waits for the queued loop test."""
-        n_active, keep, found = self._flag.wait().tolist()
+        with spans.span("segment.wait"):
+            n_active, keep, found = self._flag.wait().tolist()
         self.n_active = n_active
         if self.tr.hc.compact_survivors:
             self.n_live = n_active
@@ -244,10 +264,22 @@ class _Run:
         return fused.TrackResult(x=x, converged=conv, inf_fail=inf,
                                  pruned=pruned, num_steps=steps)
 
+    def outcome(self) -> list:
+        """The abort's outcome [found, found_path, best_support,
+        best_path], read in one copy.  An abort run reads the number of
+        paths it scored in the same copy and records it beside the scoring
+        slots its boundaries computed (``min(_SCORE_SLOTS, paths)`` each)."""
+        row = [self.found.long(), self.found_path, self.best_supp,
+               self.best_path]
+        if not self.tr.abort:
+            return torch.stack(row).tolist()
+        *out, n_scored = torch.stack(row + [self.scored.sum()]).tolist()
+        spans.count("scored_paths", n_scored)
+        spans.count("score_slots", self.si * min(_SCORE_SLOTS, len(self.fl)))
+        return out
+
     def result(self) -> SegmentedResult:
-        found, fpath, bsupp, bpath = torch.stack([
-            self.found.long(), self.found_path, self.best_supp,
-            self.best_path]).tolist()
+        found, fpath, bsupp, bpath = self.outcome()
         return SegmentedResult(
             track=self.track_result(), found=bool(found), found_path=fpath,
             best_support=bsupp, best_path=bpath)

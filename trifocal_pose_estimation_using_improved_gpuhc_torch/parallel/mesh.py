@@ -203,9 +203,7 @@ class _ShardedRun:
         rows = []
         for i, (sh, run) in enumerate(zip(self.shards, self.runs)):
             with sh.enter():
-                found, fpath, bsupp, bpath = torch.stack([
-                    run.found.long(), run.found_path, run.best_supp,
-                    run.best_path]).tolist()
+                found, fpath, bsupp, bpath = run.outcome()
             off = (self.rank * len(self.runs) + i) * self.b
             rows.append([found, fpath + off if fpath >= 0 else -1, bsupp,
                          bpath + off if bpath >= 0 else -1])
