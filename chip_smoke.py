@@ -26,7 +26,10 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      programs, and the engine round without compaction (one launch)
      beside the main path's;
   7. the TrunRANSAC abort round (abort_chunk=12, H=100): the chunks it ran,
-     the time to the pose and the pose against ground truth;
+     the time to the pose, the pose against ground truth, and the boundary
+     scoring kernel's launches (hc_score) against the round's segment
+     boundaries (more than 0 and at most one a boundary; a plain round,
+     phase 4's, launches none);
   8. the step variants (predictor rk2 and rk3, corrector_jacobian_reuse
      1 and 2, predictor_handoff at tile 1 and at tile 128, where the
      handoff build's tiled kernel decides it per tile, rk_jacobian_reuse),
@@ -121,7 +124,15 @@ Phases (each prints its lines; any failure raises and exits nonzero):
      with the oracle and with K1 as the float32 side, reconcile_stats_torch
      at H=100 (TrunPaths off and on, on K1), accuracy_sweep_torch over the
      3 views (--retries 1 --exhaustive 0, every view found) and
-     roofline_torch on phase 10's measured step.
+     roofline_torch on phase 10's measured step;
+ 16. the boundary scoring kernel (csrc/hc_score.cu, _kernels.hc_score)
+     alone at the abort chunk's shape (12 x the roots paths, all newly
+     converged, a third posed at the ground truth; 128 slots; 5,117
+     edgels, view 0's rows repeated): bit for bit with the plain body
+     (segmented._Run._score_plain) over 24 boundaries, its device time a
+     launch (launches queued behind a sleep on the card, CUDA events,
+     median of 3) beside its bound, and both versions' time a boundary to
+     the card's finish.
 Then a JSON line of per-kernel numbers (one entry per solve program of
 hc_track: launches in the engine's round, ms of the segmented tracker that
 round runs, ms_one_launch of one launch, plain_ms of track_plain, all on
@@ -142,7 +153,10 @@ round's track_ms beside K1's; and phase 13's entry of K1 on the P2C plan,
 plan "p2c": its launches in the P2C rung's round, per rung of the CLI's
 ladder, ms, the PH plan's ms under the same knobs, plain_ms and bound;
 the reduced entry also carries phase 14's launches and times per sharded
-round, per shard, of the sharded tracker alone, of the streams and of the two processes),
+round, per shard, of the sharded tracker alone, of the streams and of the two processes;
+and phase 16's entry of hc_score: ms a launch, bound_ms, plain_ms,
+kernel_wall_ms a boundary and launches_per_boundary, its launches in
+phase 7's abort round over that round's segment boundaries),
 and as the last line {"ok": true, "device": {...}}.  Needs a CUDA card; exits nonzero without.
 """
 
@@ -176,6 +190,14 @@ MONO_SEEDS, MONO_LOOPS = 150, 3
 H_P2C = 2
 # Phase 15: the float64 reconciliation's hypotheses.
 H_TOOLS_F64 = 2
+# Phase 16: the scoring kernel at the abort chunk's shape (the
+# benchmark's 5,117 edgels a view; view 0's rows repeated), its boundaries
+# a timing, the sleep that queues them behind the card's own work, and the
+# FP32 operations of one reprojection (hc_score.cu's inlier()).
+SCORE_EDGELS, SCORE_BOUNDARIES = 5117, 24
+SCORE_SLEEP_CYCLES = 100_000_000
+SCORE_FLOPS = 39
+SCORE_SOURCE = "trifocal_pose_estimation_using_improved_gpuhc_torch/csrc/hc_score.cu"
 # Phase 14: shards sharing the one card (3 pads H=100 to 102), the
 # two-process run's hypotheses and its worker's command-line flag.
 DEVICE = "cuda:0"
@@ -1188,6 +1210,131 @@ def tools_phase(step_us, paths):
     assert f["bound_by"] == "operations" and f["bound_share"] < 0.25, f
 
 
+def score_kernel_phase(cfg, problem, view, _kernels, segmented,
+                       launches_per_boundary):
+    """Phase 16 (see the module docstring): the boundary scoring kernel
+    (csrc/hc_score.cu) alone at the abort chunk's shape, bit for bit with
+    the plain body on the card and timed beside it; returns its entry of
+    the kernels line, with phase 7's measured launches a boundary."""
+    import numpy as np
+
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import fused
+    from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
+        config,
+        data_io,
+    )
+
+    dev = torch.device("cuda", 0)
+    B = ABORT_CHUNK * problem.num_tracks
+    slots = min(segmented._SCORE_SLOTS, B)
+    rc = dataclasses.replace(cfg.ransac, abort_by_good_sol=True)
+    track = segmented.make_segmented_track_fn(problem, cfg.hc, rc)
+    edgels = np.resize(view.edge_locations, (SCORE_EDGELS, 6))
+    kmat = torch.as_tensor(data_io.load_intrinsic_matrix(
+        config.ransac_data_dir(cfg)), device=dev)
+    tgt = torch.as_tensor(ransac_target(view), device=dev).repeat(B, 1)
+    x0 = torch.as_tensor(np.resize(problem.start_sols, (B, 30)), device=dev)
+    # Every path newly converged, a third posed at the ground truth, the
+    # rest at random: each of the SCORE_BOUNDARIES boundaries fills its
+    # slots.
+    rng = np.random.default_rng(SEED)
+    gt = np.concatenate([view.gt_pose21[:, 3], view.gt_pose31[:, 3],
+                         cayley_params(view.gt_pose21[:, :3]),
+                         cayley_params(view.gt_pose31[:, :3])])
+    pose = np.where(rng.random((B, 1)) < 1 / 3, gt,
+                    rng.standard_normal((B, 12)))
+    x = (rng.standard_normal((B, 30))
+         + 1j * rng.standard_normal((B, 30))).astype(np.complex64)
+    fl = fused.init_flags(cfg.hc, B).numpy()
+    fl[:, fused._F_T] = 1.0
+    order = rng.permutation(B)
+
+    def fresh():
+        run = track.begin(x0, tgt, torch.as_tensor(edgels, device=dev), kmat,
+                          SCORE_EDGELS)
+        rows = run.pose_rows.cpu().numpy()
+        xr = x.copy()
+        xr[:, rows] = (pose + 1e-8j).astype(np.complex64)
+        run.x = torch.as_tensor(xr, device=dev)
+        run.fl = torch.as_tensor(fl, device=dev)
+        run.order = torch.as_tensor(order, device=dev)
+        return run
+
+    def outcome(run):
+        return [getattr(run, k).cpu() for k in
+                ("scored", "found", "found_path", "best_supp", "best_path")]
+
+    kern, plain = fresh(), fresh()
+    for b in range(SCORE_BOUNDARIES):
+        kern._score_new()
+        plain._score_plain()
+        assert all(torch.equal(a, c) for a, c in
+                   zip(outcome(kern), outcome(plain))), b
+    assert bool(kern.found) and int(kern.scored.sum()) == \
+        SCORE_BOUNDARIES * slots
+
+    def wall(score):
+        """ms a boundary on the host's clock, to the card's finish."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SCORE_BOUNDARIES):
+            score()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / SCORE_BOUNDARIES
+
+    kern_wall, plain_wall = [], []
+    for _ in range(3):
+        kern_wall.append(wall(fresh()._score_new))
+        plain_wall.append(wall(fresh()._score_plain))
+    # The kernel's device time: its launches queued behind a sleep on the
+    # card, so that the events time the card's work and not the host's.
+    dev_ms = []
+    for _ in range(3):
+        run = fresh()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SCORE_SLEEP_CYCLES)
+        start.record()
+        for _ in range(SCORE_BOUNDARIES):
+            run._score_new()
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end) / SCORE_BOUNDARIES)
+    ms = sorted(dev_ms)[1]
+    ptxas = "; ".join(
+        line.split(":", 1)[-1].strip()
+        for line in _kernels.build_logs.get("hc_score", "").splitlines()
+        if "registers" in line or "spill" in line) or "built before"
+    print(f"build hc_score: ptxas hc_score_kernel: {ptxas}", flush=True)
+    flops = slots * SCORE_EDGELS * 2 * SCORE_FLOPS
+    nbytes = B * 5 + slots * 12 * 8 + SCORE_EDGELS * 6 * 4
+    bound_ms = max(flops / 67e12, nbytes / 3.35e12) * 1e3
+    print(f"hc_score B={B} slots={slots} N={SCORE_EDGELS}: bit for bit with "
+          f"the plain body over {SCORE_BOUNDARIES} boundaries; kernel "
+          f"{ms * 1e3:.2f} us a launch on the card (runs "
+          + ", ".join(f"{m * 1e3:.2f}" for m in dev_ms)
+          + f"), bound {bound_ms * 1e3:.3f} us ({flops / 1e6:.1f} MFLOP, "
+          f"{nbytes / 1e3:.1f} kB; {100 * bound_ms / ms:.2f} %); to the "
+          f"card's finish a boundary: kernel "
+          + ", ".join(f"{m:.4f}" for m in kern_wall) + " ms, plain "
+          + ", ".join(f"{m:.4f}" for m in plain_wall) + " ms", flush=True)
+    return dict(name="hc_score", source=SCORE_SOURCE, replaces=None,
+                program="scoring", ms=ms, bound_ms=bound_ms,
+                bound_share=bound_ms / ms, plain_ms=sorted(plain_wall)[1],
+                kernel_wall_ms=sorted(kern_wall)[1],
+                launches_per_boundary=launches_per_boundary,
+                library_ms=None, ptxas=ptxas)
+
+
+def cayley_params(r):
+    """The Cayley vector of rotation r (the inverse of
+    trifocal.cayley_to_rotation)."""
+    import numpy as np
+
+    return np.array([r[2, 1] - r[1, 2], r[0, 2] - r[2, 0],
+                     r[1, 0] - r[0, 1]]) / (1.0 + np.trace(r))
+
+
 def ransac_target(view):
     """View ``view``'s first hypothesis's target parameters (seed SEED),
     (1, P+1) complex64."""
@@ -1319,9 +1466,11 @@ def main() -> int:
 
     def counted_round(e):
         """One round through engine e, the launches (hc_track's returned,
-        hc_phase's in hc_phase.phase_launches) counted from 0."""
+        hc_phase's in hc_phase.phase_launches, hc_score's in
+        hc_score.launches) counted from 0."""
         _kernels.hc_track.launches = 0
         _kernels.hc_phase.phase_launches = {}
+        _kernels.hc_score.launches = 0
         rr = e.run_round(view, SEED, H_ROUND)
         return rr, _kernels.hc_track.launches
 
@@ -1353,6 +1502,7 @@ def main() -> int:
     print(f"round H={H_ROUND}: hc_phase launches {phase_round['reduced']}",
           flush=True)
     assert launches > 0, "the round did not launch the kernel"
+    assert _kernels.hc_score.launches == 0, "a plain round scored"
     pose_line(rr)
     plain_engine = eng.TrifocalPoseEngine(cfg, track_fn=plain_track)
     rp_round = plain_engine.run_round(view, SEED, H_ROUND)
@@ -1466,13 +1616,19 @@ def main() -> int:
     engine_a = eng.TrifocalPoseEngine(cfg_a)
     engine_a.run_round(view, SEED, H_ROUND)  # warm-up
     ra, launches_a = counted_round(engine_a)
+    # The boundary scoring kernel's launches in the round, against its
+    # segment boundaries (the round's segment.boundary spans).
+    score_a = _kernels.hc_score.launches
+    boundaries_a = sum(s[0] == "segment.boundary" for s in ra.spans)
     n_chunks = -(-H_ROUND // ABORT_CHUNK)
     print(f"abort round H={H_ROUND}, chunk {ABORT_CHUNK}: chunks run "
           f"{ra.chunks_run} of {n_chunks}, found_pose {ra.found_pose}, best support {ra.best_support21}/"
           f"{ra.best_support31} of {ra.num_edgels}, launches {launches_a}, "
+          f"hc_score launches {score_a} at {boundaries_a} boundaries, "
           f"track_ms (time to pose) {ra.track_ms:.3f}, total_ms "
           f"{ra.total_ms:.3f}", flush=True)
     assert launches_a > 0, "the abort round did not launch the kernel"
+    assert 0 < score_a <= boundaries_a, (score_a, boundaries_a)
     pose_line(ra)
     assert ra.chunks_run < n_chunks, ra.chunks_run
 
@@ -1770,6 +1926,12 @@ def main() -> int:
     t_tools = time.perf_counter()
     tools_phase(*steps_us["reduced"])
     print(f"phase 15: {time.perf_counter() - t_tools:.1f} s", flush=True)
+
+    # 16. The boundary scoring kernel alone.
+    t_score = time.perf_counter()
+    kernels.append(score_kernel_phase(cfg, problem, view, _kernels,
+                                      segmented, score_a / boundaries_a))
+    print(f"phase 16: {time.perf_counter() - t_score:.1f} s", flush=True)
     print(f"smoke: {time.perf_counter() - t_smoke:.1f} s", flush=True)
     print(json.dumps({"kernels": [{
         **dict(name="hc_track", route="cuda", source=SOURCE, library_ms=None,

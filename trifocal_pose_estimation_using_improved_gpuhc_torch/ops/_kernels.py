@@ -26,6 +26,12 @@ card holds at once (``hc_track_tile_clusters``, the occupancy query).
 ``hc_phase`` launches one of the same source's phase kernels (K1's pieces
 alone, ``ops/phases.py``) in the build of a configuration and counts its
 launches per phase in ``hc_phase.phase_launches``.
+
+``hc_score`` launches ``csrc/hc_score.cu``, the TrunRANSAC scoring of one
+segment boundary (``segmented._Run._score_new`` on the card), and counts
+its launches in ``hc_score.launches``; its slots a boundary are a build
+define (``hc_score_job``), and its ctypes function is bound once a
+build.
 """
 
 from __future__ import annotations
@@ -157,9 +163,16 @@ def _hc_track_job(cfg: HCConfig):
                                        for n, on in zip(_FLAGS, flags)])
 
 
-def build_hc_track(cfgs: Sequence[HCConfig]) -> None:
-    """Build the variants these configurations run, in parallel."""
-    build([_hc_track_job(c) for c in cfgs])
+def hc_score_job(slots: int):
+    """The build of csrc/hc_score.cu that scores ``slots`` slots a
+    boundary."""
+    return ("hc_score", "hc_score", (f"-DSLOTS={int(slots)}",))
+
+
+def build_hc_track(cfgs: Sequence[HCConfig], also: Sequence = ()) -> None:
+    """Build the variants these configurations run, and the ``also`` jobs,
+    in parallel."""
+    build([_hc_track_job(c) for c in cfgs] + list(also))
 
 
 def _hc_track_lib(cfg: HCConfig) -> ctypes.CDLL:
@@ -431,6 +444,94 @@ def hc_track(x: torch.Tensor, xl: torch.Tensor, flags: torch.Tensor,
 
 
 hc_track.launches = 0
+
+
+_score_fns: dict = {}  # slots -> (hc_score_launch, workspace words)
+
+
+def _hc_score_fn(slots: int):
+    if slots not in _score_fns:
+        lib = load(*hc_score_job(slots))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = lib.hc_score_launch
+        fn.argtypes = [p] * 12 + [i, i, i, f, f, f, f, p]
+        fn.restype = ctypes.c_int
+        _score_fns[slots] = fn, lib.hc_score_work_words()
+    return _score_fns[slots]
+
+
+def hc_score_workspace(device, slots: int) -> torch.Tensor:
+    """A zeroed workspace for ``hc_score`` at ``slots`` slots, sized by
+    its library, one per run: runs on several streams of a card each need
+    their own."""
+    return torch.zeros(_hc_score_fn(slots)[1], dtype=torch.int32,
+                       device=device)
+
+
+def hc_score(x: torch.Tensor, fl: torch.Tensor, scored: torch.Tensor,
+             order: torch.Tensor, pose_rows: torch.Tensor,
+             edgels: torch.Tensor, kmat: torch.Tensor, found: torch.Tensor,
+             found_path: torch.Tensor, best_supp: torch.Tensor,
+             best_path: torch.Tensor, work: torch.Tensor, slots: int,
+             t_col: int, t_eps: float, imag_tol: float, thresh: float,
+             need: float) -> None:
+    """One boundary's TrunRANSAC scoring (``segmented._Run._score_new``)
+    in one launch of ``csrc/hc_score.cu`` on CUDA tensors, in place: the
+    first min(``slots``, B) newly converged paths (t in column ``t_col``
+    of the flags reaches 1 or comes within ``t_eps`` of it, and ``scored``
+    is unset) are gated, posed and counted over every edgel, and
+    ``scored``, ``found``, ``found_path``, ``best_supp`` and ``best_path``
+    take the outcome, bit for bit as ``_Run._score_plain`` gives it.
+
+    x (B, 30) complex64 and fl (B, 8) float32 of the packed paths, scored
+    (B,) bool, order (B,) int64 (each packed path's index), pose_rows (12,)
+    int64 (the positions of T21, T31, Cayley21, Cayley31), edgels (N, 6)
+    and kmat (3, 3) float32, found () bool, found_path, best_supp and
+    best_path () int64, work (1-D int32) from
+    ``hc_score_workspace(device, slots)``; the thresholds are compared in
+    float32.  Raises on anything else or if the launch fails."""
+    B = x.shape[0] if x.dim() == 2 else 0
+    if B < 1:
+        raise ValueError(f"x must be (B, 30) with B >= 1, got "
+                         f"{tuple(x.shape)}")
+    n = edgels.shape[0] if edgels.dim() == 2 else 0
+    i64 = torch.int64
+    spec = {"x": (x, torch.complex64, (B, 30)),
+            "fl": (fl, torch.float32, (B, 8)),
+            "scored": (scored, torch.bool, (B,)),
+            "order": (order, i64, (B,)), "pose_rows": (pose_rows, i64, (12,)),
+            "edgels": (edgels, torch.float32, (n, 6)),
+            "kmat": (kmat, torch.float32, (3, 3)),
+            "found": (found, torch.bool, ()),
+            "found_path": (found_path, i64, ()),
+            "best_supp": (best_supp, i64, ()),
+            "best_path": (best_path, i64, ()),
+            "work": (work, torch.int32, (work.numel(),))}
+    # Every dtype and shape first, then the device and the layout.
+    for name, (t, dtype, shape) in spec.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {dtype} of shape "
+                             f"{'(words,)' if name == 'work' else shape}, "
+                             f"got {t.dtype} of shape {tuple(t.shape)}")
+    for name, (t, dtype, shape) in spec.items():
+        _check(t, name, dtype, shape)
+    tensors = [t for t, _, _ in spec.values()]
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("tensors on several devices")
+    fn, words = _hc_score_fn(slots)
+    if work.numel() != words:
+        raise ValueError(f"work must be {words} words for {slots} slots, "
+                         f"got {work.numel()}")
+    with torch.cuda.device(x.device):
+        err = fn(*(t.data_ptr() for t in tensors), B, n, int(t_col),
+                 float(t_eps), float(imag_tol), float(thresh), float(need),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hc_score launch failed: CUDA error {err}")
+    hc_score.launches += 1
+
+
+hc_score.launches = 0
 
 
 def hc_solve_replay(m: torch.Tensor, rhs: torch.Tensor, plan: torch.Tensor

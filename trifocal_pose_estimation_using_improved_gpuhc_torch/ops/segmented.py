@@ -12,7 +12,10 @@ steps left of the budget.  Between segments:
   pairs, and the found test (both supports >= ratio x edgels).  It keeps
   the running best support and its path and the first found path.  Paths
   beyond the 128 slots wait for the next boundary and are never dropped.
-  A found flag ends the tracking at that boundary;
+  A found flag ends the tracking at that boundary.  On the card this is one
+  launch of ``csrc/hc_score.cu`` (``_kernels.hc_score``), which updates the
+  run's state in place; on the CPU it is the eager ``_score_plain``, the
+  kernel's plain twin, bit for bit;
 * with ``compact_survivors``, the paths are packed by the JAX package's
   key: active paths first, ordered by 1 - t, then the finished ones, in a
   stable sort.  The next segment then launches over the active prefix
@@ -163,11 +166,13 @@ class _Run:
         if tr.abort:
             if edgels is None:
                 raise ValueError("the abort round needs the view's edgels")
-            self.edgels = edgels
+            self.edgels = edgels.contiguous()   # the kernel reads rows
             self.kmat = intrinsics
             # The pass test in float32, as the reference computes it.
             self.need = float(np.float32(tr.ratio) * np.float32(
                 n_edgels if n_edgels is not None else len(edgels)))
+            if dev.type == "cuda":
+                self.score_work = tr.score_workspace(dev)
         self.si = 0
         self.n_live = B   # paths the next launch covers
         self.n_active = B
@@ -228,7 +233,22 @@ class _Run:
         return keep and not found
 
     def _score_new(self) -> None:
-        """Score newly converged paths (the module docstring's gate)."""
+        """Score newly converged paths (the module docstring's gate): on
+        the card in one launch of ``_kernels.hc_score``, on the CPU by
+        ``_score_plain``."""
+        if self.dev.type != "cuda":
+            self._score_plain()
+            return
+        tr = self.tr
+        tr.kernels.hc_score(
+            self.x, self.fl, self.scored, self.order, self.pose_rows,
+            self.edgels, self.kmat, self.found, self.found_path,
+            self.best_supp, self.best_path, self.score_work, _SCORE_SLOTS,
+            fused._F_T, tr.hc.t_converged_eps, tr.imag_tol, tr.thresh_px,
+            self.need)
+
+    def _score_plain(self) -> None:
+        """``_score_new`` in eager PyTorch: the kernel's plain twin."""
         tr = self.tr
         sidx, valid = score_slots(tr.hc, self.fl, self.scored)
         self.scored[sidx] = self.scored[sidx] | valid
@@ -311,6 +331,18 @@ class _Tracker:
         self.imag_tol = rc.imag_part_tol
         self.thresh_px = rc.reproj_inlier_thresh_px
         self.ratio = rc.pass_inlier_support_ratio
+        self._built = False
+
+    def score_workspace(self, dev) -> torch.Tensor:
+        """A workspace of the boundary scoring kernel on card ``dev``.  The
+        first builds the tracker's variant and the scoring's library
+        together, nvcc in parallel (each is otherwise built at its first
+        launch)."""
+        if not self._built:
+            self.kernels.build_hc_track(
+                [self.hc], also=[self.kernels.hc_score_job(_SCORE_SLOTS)])
+            self._built = True
+        return self.kernels.hc_score_workspace(dev, _SCORE_SLOTS)
 
 
 def make_segmented_track_fn(problem, hc: HCConfig,
