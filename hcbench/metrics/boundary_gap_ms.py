@@ -1,6 +1,7 @@
 """boundary_gap_ms: the segment driver's host time per view (``ops/
 segmented``): the rounds' ``track_ms`` less the device time of their
-``hc_track*`` kernels (profiler), over the traced requests, per view."""
+``hc_track*`` kernels (profiler; in a cell of several cards the mean
+card's), over the traced requests, per view."""
 
 
 def read(run):
@@ -8,6 +9,6 @@ def read(run):
         return None
     n = run.trace.requests
     kernel = sum(s for d in run.trace.device_s.values()
-                 for name, s in d.items() if "hc_track" in name)
+                 for name, s in d.items() if "hc_track" in name) / run.chips
     track = sum(r.track_ms for r in run.requests[:n]) * 1e-3
     return (track - kernel) * 1e3 / n

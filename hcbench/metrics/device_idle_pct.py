@@ -1,5 +1,6 @@
 """device_idle_pct: the share of the traced window in which no operation
-ran on the device: 100 x (1 - union of the device intervals / window)."""
+ran on the device: 100 x (1 - union of the device intervals / window); in
+a cell of several cards the mean card's share (``Trace.busy_s``)."""
 
 
 def read(run):

@@ -11,21 +11,25 @@ and by the driver ``drivers/<driver>.py`` it names), the limits of the
 correctness check ``limits/<cell>.json`` and each metric's reader
 ``metrics/<metric>.py``.
 
-A run builds the port's ``TrifocalPoseEngine`` on ``cuda:0``, makes the
-cell's pool of views from ``--seed``, warms up one round of the cell's own
-shape (all of that is ``setup_s``), then drives ``run_round`` for
-``--seconds``.  With ``--trace 1`` the window's first seconds run under
-``torch.profiler`` (``trace.Session``) and the per-layer metrics are
-reported in place of the end-to-end ones.
+A run builds the port's ``TrifocalPoseEngine`` on ``cuda:0`` (a cell of
+``chips`` cards: its hypotheses sharded over ``cuda:0`` to
+``cuda:<chips - 1>``, the configuration's ``engine.num_devices``, which
+has to equal ``chips``), makes the cell's pool of views from ``--seed``,
+warms up one round of the cell's own shape (all of that is ``setup_s``),
+then drives ``run_round`` for ``--seconds``.  With ``--trace 1`` the
+window's first seconds run under ``torch.profiler`` (``trace.Session``)
+and the per-layer metrics are reported in place of the end-to-end ones.
 After the window: the check that no module of JAX or the JAX package was
-loaded; the device's memory peak; every request's pose held to the view's
-ground truth (``failed``: no pose, or one outside the configuration's
-residual tolerances); then, the program's state freed, one request drawn
-from the seed is recomputed by the plain reference (``reference.py``) and
-compared path by path and pose by pose (``correct``).  The compared numbers
-and their limits are the last lines on standard error and the last key of
-the result, which is the last line on standard output.  Exits nonzero,
-with no result, without a card, and if a forbidden module was loaded.
+loaded; the memory peak of the fullest card; every request's pose held to
+the view's ground truth (``failed``: no pose, or one outside the
+configuration's residual tolerances); then, the program's state freed, one
+request drawn from the seed is recomputed by the plain reference
+(``reference.py``) on the first card and compared path by path and pose by
+pose (``correct``).  The compared numbers and their limits are the last
+lines on standard error and the last key of the result, which is the last
+line on standard output.  Exits nonzero, with no result, without the
+cell's cards, for a cell whose ``chips`` differ from its configuration's
+shards, and if a forbidden module was loaded.
 """
 
 import time
@@ -87,9 +91,15 @@ def load_cell(name: str, bench: Optional[dict] = None) -> dict:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     w = cells[name]
     config = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    sizes = load_json(os.path.join(ROOT, config["file"]))
+    shards = sizes["engine"].get("num_devices") or 1
+    if shards != w["chips"]:
+        raise SystemExit(f"hcbench: workload {name!r} takes {w['chips']} "
+                         f"chip(s), but its configuration shards over "
+                         f"engine.num_devices={shards}")
     return dict(
         workload=w,
-        config=load_json(os.path.join(ROOT, config["file"])),
+        config=sizes,
         traffic=load_json(os.path.join(HERE, "traffic",
                                        f"{w['traffic']}.json")),
         limits=load_json(os.path.join(HERE, "limits", f"{name}.json")),
@@ -148,6 +158,7 @@ class RunRecord:
     trace: object = None     # trace.Trace of a --trace 1 run
     checked: int = -1        # the request the reference recomputed
     bound_ms: Optional[float] = None  # its tracking's bound (--trace 1)
+    chips: int = 1           # the cards the engine's shards run on
 
 
 def pose_gap(a, b) -> float:
@@ -189,12 +200,22 @@ def merged(over: dict, more: dict) -> dict:
     return out
 
 
+def mesh_devices(device: str, chips: int) -> list:
+    """The devices of a cell's ``chips`` shards: the cards from cuda:0 up,
+    or, for a rehearsal on the CPU, ``device`` once a shard."""
+    if device.startswith("cuda"):
+        return [f"cuda:{i}" for i in range(chips)]
+    return [device] * chips
+
+
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda:0", t0: float = _T0,
              program: Optional[dict] = None) -> tuple:
     """One run of a cell: (result dict, compared numbers).  ``device`` is
-    the card, or "cpu" for a rehearsal on the CPU; ``program`` overrides
-    the configuration of the program alone, not the reference's (the
+    the card, or "cpu" for a rehearsal on the CPU; a cell of more chips
+    shards the engine over ``mesh_devices(device, chips)``, and the
+    reference runs on the first of them.  ``program`` overrides the
+    configuration of the program alone, not the reference's (the
     control)."""
     import torch
 
@@ -220,7 +241,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     traffic = cell["traffic"]
     k_mat = load_intrinsic_matrix(plain_config.ransac_data_dir(plain_cfg))
     pool = views.make_pool(traffic, seed, k_mat.astype(np.float64))
-    eng = engine.TrifocalPoseEngine(cfg, device=device)
+    chips = int(cell["workload"]["chips"])
+    devices = mesh_devices(device, chips)
+    eng = engine.TrifocalPoseEngine(cfg, device=devices)
 
     def gt(pose):
         return np.concatenate([pose[0], pose[1][:, None]],
@@ -232,7 +255,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
 
     def sync():
         if cuda:
-            torch.cuda.synchronize()
+            for d in devices:
+                torch.cuda.synchronize(d)
 
     eng.run_round(handed[0], views.request_seed(seed, 0, views.WARMUP_STREAM))
     sync()
@@ -261,13 +285,14 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         serve, indices, seed, seconds, traffic,
         session.annotate if trace else lambda i: contextlib.nullcontext())
     launches = _kernels.hc_track.launches - launches0
-    memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if cuda else 0
+             for d in devices]
     found = forbidden_modules(sys.modules)
     if found:
         raise ForbiddenModules(found)
     if trace:
         session.stop()
-    traced = tracing.read(session) if trace else None
+    traced = tracing.read(session, chips) if trace else None
 
     # The program's state goes before the reference runs on the device.
     del eng, session
@@ -293,7 +318,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         traced.requests if trace else len(requests)))
     req = requests[checked]
     t_ref = time.perf_counter()
-    plain = reference.PlainRound(plain_cfg, device)
+    plain = reference.PlainRound(plain_cfg, devices[0])
     work = {} if trace else None
     view = pool[req.view]
     ref, n_paths = plain.run(view.edge_locations, view.edge_tangents,
@@ -302,7 +327,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
           f"{len(requests)} requests ({failed} failed; worst residual to "
           f"the ground truth {rot!r} rad, {tr!r}), reference of request "
           f"{checked} {time.perf_counter() - t_ref:.3f} s ({ref.chunks_run} "
-          f"chunks, {n_paths} paths)", file=sys.stderr)
+          f"chunks, {n_paths} paths); memory peak by card {peaks}",
+          file=sys.stderr)
     limits = cell["limits"]
     numbers = {
         "paths_differ": (reference.paths_differ(req, ref)
@@ -318,7 +344,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                     failed=failed, launches=launches, trace=traced,
                     checked=checked,
                     bound_ms=(reference.bound_ms(plain, work, n_paths)
-                              if trace else None))
+                              if trace else None),
+                    chips=chips)
     metrics = {}
     for m in cell["per_layer"] if trace else cell["end_to_end"]:
         value = load_module(os.path.join(HERE, "metrics",
@@ -327,7 +354,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-           "count": 1, "memory_peak_bytes": int(memory_peak)}
+           "count": chips, "memory_peak_bytes": int(max(peaks))}
     result = {"correct": bool(correct), "attempted": len(requests),
               "failed": failed, "metrics": metrics, "device": dev}
     if trace:

@@ -1,9 +1,10 @@
 """The readers of the program's spans and counters (``program_spans`` and
-the four metrics on it) on a hand-built run: two requests whose spans and
+the five metrics on it) on a hand-built run: two requests whose spans and
 counters, laid in the program's log of its last rounds, are chosen so
 that each metric's value can be worked out by hand; and the idle time by
 innermost span of device intervals laid over them (idle time inside a
-segment span counts for it, not for ``round.track`` or ``round``)."""
+segment span counts for it, not for ``round.track`` or ``round``), one
+card's or the mean of two cards'."""
 
 import collections
 import os
@@ -47,6 +48,8 @@ TRACED = _spans([
     ("score.supports", 85, 90, 8),
 ])
 BUSY = [[15, 18], [30, 62], [90, 97]]
+BUSY_S = [[(BASE + a * 1e6) * 1e-9, (BASE + b * 1e6) * 1e-9]
+          for a, b in BUSY]
 # After the profiler: host 4 + 6 + 1 + 2 = 13 ms, waits 30 + 5 = 35 ms,
 # the score's wait 2 ms.
 AFTER = _spans([
@@ -72,14 +75,16 @@ COUNTS = [{"scored_paths": 100, "score_slots": 384},
           {"scored_paths": 28, "score_slots": 128}, {}]
 
 
-def _record(traced_requests=1):
+def _record(traced_requests=1, busy=(BUSY_S,)):
     """The run: the traced request, the one after the profiler, and one
-    that raised; track_ms is each round's ``round.track`` span."""
+    that raised; track_ms is each round's ``round.track`` span; ``busy``
+    holds each card's merged device intervals."""
     reqs = [run.Request(0, 0, 1, 100.0, track_ms=70.0),
             run.Request(1, 1, 2, 60.0, track_ms=50.0),
             run.Request(2, 0, 3, 1.0, error="raised")]
     tr = trace.Trace(requests=traced_requests, window_s=0.3, busy_s=0.042,
-                     device_s={}, device_ops=[], idle_gaps=[])
+                     device_s={}, device_ops=[], idle_gaps=[],
+                     busy=list(busy))
     return run.RunRecord(setup_s=1.0, window_s=0.3, requests=reqs, failed=1,
                          launches=3, trace=tr)
 
@@ -100,7 +105,10 @@ def _read(name, rec):
 
 
 # (metric, value on the hand-built run, value when every request was traced)
+# boundary_idle_ms reads the traced requests: TRACED's segment spans hold
+# 7 + 10 + 0 ms of idle time, AFTER's lie wholly idle, 5 + 8 + 35 ms.
 EXPECTED = [
+    ("boundary_idle_ms", 17.0, (17.0 + 48.0) / 2),
     ("boundary_host_ms", 13.0, (25.0 + 13.0) / 2),
     ("boundary_wait_ms", 35.0, (25.0 + 35.0) / 2),
     ("score_wait_ms", 2.0, (10.0 + 2.0) / 2),
@@ -156,9 +164,7 @@ def test_rounds_pair_the_log_tail_with_the_requests(log):
 def test_self_idle_gives_each_instant_to_the_innermost_span():
     """TRACED's idle time by innermost span, in its order; the 3 ms left to
     ``round`` itself are the idle time no child span covers."""
-    busy = [[(BASE + a * 1e6) * 1e-9, (BASE + b * 1e6) * 1e-9]
-            for a, b in BUSY]
-    own = program_spans.self_idle(TRACED, program_spans.Busy(busy))
+    own = program_spans.self_idle(TRACED, program_spans.Busy(BUSY_S))
     assert [o * 1e3 for o in own] == pytest.approx(
         [3, 5, 5, 10, 7, 10, 0, 8, 0, 5, 5], abs=1e-2)
 
@@ -171,3 +177,12 @@ def test_busy_within_clips_at_both_ends():
     assert busy.within(2.0, 3.0) == 0.0
     assert busy.within(7.5, 9.0) == 0.0
     assert program_spans.Busy([]).within(0.0, 1.0) == 0.0
+
+
+def test_boundary_idle_is_the_mean_cards(log):
+    """A second card with no operation leaves TRACED's segment spans idle
+    all through, 10 + 15 + 25 ms; the metric reads the mean of the two
+    cards, and nothing from a trace without intervals."""
+    assert _read("boundary_idle_ms", _record(busy=(BUSY_S, []))) == \
+        pytest.approx((17.0 + 50.0) / 2, abs=1e-2)
+    assert _read("boundary_idle_ms", _record(busy=())) is None

@@ -1,6 +1,6 @@
 """Tracing a window's first seconds, and reading the trace: device busy
 time, device time per request and by kernel, and the idle gaps by what the
-host was doing.
+host was doing, each card's on its own in a cell of several.
 
 ``Session`` runs ``torch.profiler`` with CPU and CUDA activities from the
 window's start to the first request boundary after ``TRACE_SECONDS``, and
@@ -12,6 +12,12 @@ request's call returns only with its pose on the host, so every device
 operation it queued ran inside its range: an operation is the request's if
 its interval lies in the request's range.  The events are read from the
 profiler's raw Kineto results.
+
+A cell of several cards reads each card's events apart (Kineto's
+``device_index``): its busy intervals are merged card by card, its busy
+time is the mean card's, and its idle gaps are each card's, summed by the
+host's activity.  A cell of one card reads every device event as its
+card's.
 """
 
 from __future__ import annotations
@@ -30,23 +36,6 @@ REQUEST = "hcbench.request."
 TRACE_SECONDS = 15.0  # the traced part of a window
 TOP = 10  # entries of each breakdown list
 NAME = 96  # characters of an operation's name kept in the breakdown
-
-
-def union_us(intervals):
-    """Total length of the union of (start, end) intervals: a copy of
-    ``_union_us`` in ``tools/profile_torch_round.py`` (commit
-    e13ae2fbc8b3)."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
 
 
 class Session:
@@ -89,12 +78,16 @@ class Session:
 
 @dataclasses.dataclass
 class Trace:
+    """A traced window; device times are summed over the cards."""
+
     requests: int          # the window's first requests, which were traced
     window_s: float        # the traced window's length
-    busy_s: float          # union of the device operations' intervals in it
+    busy_s: float          # the mean card's union of its operations in it
     device_s: dict         # request index -> {kernel name: device seconds}
     device_ops: list       # [[name, seconds]]: the TOP names by device time
     idle_gaps: list        # [[host activity, seconds]]: idle time by it
+    # Per card, its operations' merged intervals [[start, end]] (seconds).
+    busy: list = dataclasses.field(default_factory=list)
 
 
 def _merged(intervals):
@@ -107,14 +100,14 @@ def _merged(intervals):
     return out
 
 
-def read(session: Session) -> Trace:
-    """The Trace of a stopped session."""
+def read(session: Session, chips: int = 1) -> Trace:
+    """The Trace of a stopped session of a cell of ``chips`` cards."""
     events = session.prof.profiler.kineto_results.events()
     cuda = torch.autograd.DeviceType.CUDA
     window = None
     requests = []          # (start, end, index)
     host = []              # (start, end, name): the host's own operations
-    device = []            # (start, end, name)
+    cards = defaultdict(list)  # card -> [(start, end, name)]
     for e in events:
         name = e.name()
         s, t = e.start_ns() * 1e-9, e.end_ns() * 1e-9
@@ -122,7 +115,8 @@ def read(session: Session) -> Trace:
             # Kineto mirrors each range onto the device's timeline: a
             # label, not an operation.
             if not name.startswith("hcbench."):
-                device.append((s, t, name))
+                cards[e.device_index() if chips > 1 else 0].append(
+                    (s, t, name))
         elif name == WINDOW:
             window = (s, t)
         elif name.startswith(REQUEST):
@@ -132,7 +126,10 @@ def read(session: Session) -> Trace:
     if window is None:
         raise RuntimeError(f"the profile has no {WINDOW} range")
     w0, w1 = window
-    device = [d for d in device if d[0] >= w0 and d[1] <= w1]
+    # A card without an operation in the window is idle all through it.
+    cards = [[d for d in cards[c] if d[0] >= w0 and d[1] <= w1]
+             for c in sorted(set(range(chips)) | set(cards))]
+    device = [d for card in cards for d in card]
     requests.sort()
     starts = [r[0] for r in requests]
     device_s: dict = defaultdict(lambda: defaultdict(float))
@@ -142,28 +139,32 @@ def read(session: Session) -> Trace:
         j = bisect.bisect_right(starts, s) - 1
         if j >= 0 and t <= requests[j][1]:
             device_s[requests[j][2]][name] += t - s
-    busy = _merged([(s, t) for s, t, _ in device])
+    busy = [_merged([(s, t) for s, t, _ in card]) for card in cards]
     return Trace(
         requests=session.requests,
         window_s=w1 - w0,
-        busy_s=union_us([(s, t) for s, t, _ in device]),
+        busy_s=sum(e - s for card in busy for s, e in card) / chips,
         device_s={i: dict(v) for i, v in device_s.items()},
         device_ops=[[n[:NAME], v] for n, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:TOP]],
-        idle_gaps=_idle_by_host(busy, w0, w1, host))
+        idle_gaps=_idle_by_host(busy, w0, w1, host),
+        busy=busy)
 
 
-def _idle_by_host(busy, w0, w1, host) -> list:
-    """The device's idle time in the window, summed by the host operation
-    under way at each gap's midpoint (the innermost, i.e. latest started,
-    that covers it; "python" where none does: the host between operations)."""
-    gaps, prev = [], w0
-    for s, e in busy:
-        if s > prev:
-            gaps.append((prev, s))
-        prev = max(prev, e)
-    if w1 > prev:
-        gaps.append((prev, w1))
+def _idle_by_host(cards, w0, w1, host) -> list:
+    """The cards' idle time in the window (each card's merged busy
+    intervals in ``cards``), summed by the host operation under way at each
+    gap's midpoint (the innermost, i.e. latest started, that covers it;
+    "python" where none does: the host between operations)."""
+    gaps = []
+    for busy in cards:
+        prev = w0
+        for s, e in busy:
+            if s > prev:
+                gaps.append((prev, s))
+            prev = max(prev, e)
+        if w1 > prev:
+            gaps.append((prev, w1))
     host.sort()
     hs = np.array([h[0] for h in host])
     he = np.array([h[1] for h in host])
