@@ -21,6 +21,16 @@ the kernel's plain twin (``fused.track_plain``) or the oracle.
   ratio is 0, the imaginary tolerance huge and TrunPaths off; its hit
   stops every other shard before its budget, and ``found_path`` is a global
   index in that shard.
+* The loop test's exchange: with one shard's hypothesis targeting the
+  start parameters, that shard has no active path after the first
+  boundary while the others still have; the sound mesh tracks every path
+  as one shard does, and a mesh that reads the finished shard's loop test
+  alone stops the others short.
+* The mesh's spans: one ``mesh.scatter`` and one ``mesh.gather`` a run, a
+  ``mesh.advance`` (each shard's ``segment.launch`` and
+  ``segment.boundary``, in shard order) and a ``mesh.keep`` (each shard's
+  ``segment.wait``) a boundary; a round on one device records no
+  ``mesh.*`` span.
 * The engine's ``num_devices=4`` oracle round (H = 4) against the JAX
   engine's (``test_engine_multidevice_round``'s setup): converged and
   infinity counts within the 3.2 % band of tests/test_torch_engine.py,
@@ -59,6 +69,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.parallel import (
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import (
     config,
     data_io,
+    spans,
 )
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -221,6 +232,111 @@ def test_cross_shard_abort_stops_other_shards(setup, k, trivial_shard):
     others[lo:hi] = False
     assert not res.track.converged[others].any()
     assert int(res.track.num_steps[others].max()) < hc.max_steps
+
+
+def _finishing(setup, k, trivial_shard):
+    """hc, x0, target: one hypothesis a shard over the first 8 roots, the
+    shard ``trivial_shard``'s targeting the start parameters (its paths end
+    within the first segment of 4 steps; the others' run 16), the abort
+    off."""
+    cfg = setup[0]
+    hc = dataclasses.replace(cfg.hc, max_steps=16, segment_steps=4,
+                             init_delta_t=0.5)
+    x0, tgt, _ = (torch.as_tensor(a) for a in _workload(
+        setup, k, 8, trivial=[trivial_shard]))
+    return hc, x0, tgt
+
+
+def _drive(run):
+    run.advance()
+    while run.keep():
+        run.advance()
+    return run.result().track
+
+
+@pytest.mark.parametrize("k,trivial_shard", [(2, 0), (4, 3)])
+def test_loop_test_is_exchanged_between_shards(setup, monkeypatch, k,
+                                               trivial_shard):
+    _, problem, _ = setup
+    hc, x0, tgt = _finishing(setup, k, trivial_shard)
+    one = segmented.make_segmented_track_fn(problem, hc)(x0, tgt).track
+    track = pmesh.make_sharded_track_fn(problem, hc, ["cpu"] * k)
+    run = track.begin(x0, tgt)
+    run.advance()
+    assert run.keep()
+    active = [r.n_active for r in run.runs]
+    assert active[trivial_shard] == 0
+    assert any(a > 0 for i, a in enumerate(active) if i != trivial_shard)
+    run.advance()
+    while run.keep():
+        run.advance()
+    _same(run.result().track, one)
+
+    others = torch.ones(x0.shape[0], dtype=torch.bool)
+    others[trivial_shard * 8:(trivial_shard + 1) * 8] = False
+
+    def keep(self):          # the finished shard's loop test alone
+        going, found = self.runs[trivial_shard].poll()
+        return going and not found
+
+    monkeypatch.setattr(pmesh._ShardedRun, "keep", keep)
+    short = _drive(track.begin(x0, tgt))
+    assert int(short.num_steps[others].max()) <= hc.segment_steps < int(
+        one.num_steps[others].max())
+
+
+def _kids(sp, i, name=None):
+    return [j for j, s in enumerate(sp)
+            if s[3] == i and (name is None or s[0] == name)]
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_mesh_spans(setup, monkeypatch, k):
+    _, problem, _ = setup
+    hc, x0, tgt = _finishing(setup, k, 0)
+    made, order = [], []
+    init, advance = segmented._Run.__init__, segmented._Run.advance
+
+    def spy_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def spy_advance(self):
+        order.append(made.index(self))
+        advance(self)
+
+    monkeypatch.setattr(segmented._Run, "__init__", spy_init)
+    monkeypatch.setattr(segmented._Run, "advance", spy_advance)
+    track = pmesh.make_sharded_track_fn(problem, hc, ["cpu"] * k)
+    rec = spans.Recorder()
+    with spans.recording(rec), spans.span("top"):
+        track(x0, tgt)
+    sp = rec.spans_out()
+    n = made[0].si
+    assert n >= 2 and all(r.si == n for r in made) and len(made) == k
+    assert order == list(range(k)) * n      # shard order, every boundary
+    top = [sp[j][0] for j in _kids(sp, 0)]
+    assert top == (["mesh.scatter"] + ["mesh.advance", "mesh.keep"] * n
+                   + ["mesh.gather"])
+    for i in _kids(sp, 0, "mesh.advance"):
+        assert [sp[j][0] for j in _kids(sp, i)] == [
+            "segment.launch", "segment.boundary"] * k
+    for i in _kids(sp, 0, "mesh.keep"):
+        assert [sp[j][0] for j in _kids(sp, i)] == ["segment.wait"] * k
+    for i in _kids(sp, 0, "mesh.scatter") + _kids(sp, 0, "mesh.gather"):
+        assert _kids(sp, i) == []
+    assert [s[0] for s in sp].count("segment.launch") == k * n
+
+
+def test_one_device_round_has_no_mesh_spans(setup):
+    cfg, _, view = setup
+    cfg = dataclasses.replace(cfg, hc=dataclasses.replace(
+        cfg.hc, max_steps=2, segment_steps=1))
+    rr = engine.TrifocalPoseEngine(cfg, device="cpu").run_round(
+        view, seed=0, num_hypotheses=1)
+    names = [s[0] for s in rr.spans]
+    assert "segment.launch" in names
+    assert not [n for n in names if n.startswith("mesh.")]
 
 
 def test_engine_round_matches_jax_engine(setup):

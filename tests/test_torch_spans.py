@@ -98,8 +98,10 @@ def _names(sp, idx):
 
 def _check_tree(rr, runs: list, abort: bool, shards: int = 1):
     """The nesting and the times of a round's spans, against the round's
-    segmented runs.  Over several shards the runs' segment spans
-    interleave: each shard's launch and boundary, then each one's wait."""
+    segmented runs.  Over several shards the runs' segment spans lie in
+    the mesh's, a level down, and interleave: a ``mesh.advance`` holds each
+    shard's launch and boundary, then a ``mesh.keep`` each one's wait,
+    between one ``mesh.scatter`` and one ``mesh.gather`` a tracker call."""
     sp = rr.spans
     assert sp[0][0] == "round" and sp[0][3] == -1
     for j, (name, s, e, parent) in enumerate(sp):
@@ -114,19 +116,32 @@ def _check_tree(rr, runs: list, abort: bool, shards: int = 1):
         assert sp[a][2] <= sp[b][1]
     track, score = top[2], top[3]
     under = _names(sp, _children(sp, track))
-    segs = [n for n in (
-        _names(sp, [j for c in _children(sp, track)
-                    for j in _children(sp, c)]) if abort else under)
-        if n.startswith("segment.")]
+    kids = ([j for c in _children(sp, track) for j in _children(sp, c)]
+            if abort else _children(sp, track))
+    segs = [n for n in _names(sp, kids) if n.startswith("segment.")]
     n_seg = sum(r.si for r in runs)
     assert n_seg >= 1
     one = ["segment.launch", "segment.boundary", "segment.wait"]
     if shards == 1:
         assert segs == one * n_seg
     else:
-        assert n_seg % shards == 0 and segs[:2 * shards] == (
-            one[:2] * shards)
-        assert sorted(segs) == sorted(one * n_seg)
+        assert segs == []
+        calls = ([_children(sp, c) for c in _children(sp, track)] if abort
+                 else [_children(sp, track)])
+        n_b = 0
+        for call in calls:
+            names = [n for n in _names(sp, call) if n.startswith("mesh.")]
+            n = names.count("mesh.advance")
+            assert names == (["mesh.scatter"] + ["mesh.advance",
+                                                 "mesh.keep"] * n
+                             + ["mesh.gather"])
+            n_b += n
+        assert n_b * shards == n_seg
+        mesh = [j for j in kids if sp[j][0].startswith("mesh.")]
+        for j in mesh:
+            assert _names(sp, _children(sp, j)) == {
+                "mesh.advance": one[:2] * shards,
+                "mesh.keep": one[2:] * shards}.get(sp[j][0], [])
     if abort:
         assert under == ["round.chunk"] * rr.chunks_run
     else:

@@ -38,6 +38,14 @@ outcome at the end.  Rank r's local shard i is global shard r x (local
 shards) + i, and each rank passes and gets back its own block of the
 batch.  NCCL is not used: it refuses two ranks on one card, and gloo never
 sees a CUDA tensor here.
+
+A segmented run over the shards records, in the current request's
+recorder (``utils/spans``; nothing without one), a ``mesh.scatter`` span
+(each shard handed its block and its run begun), a ``mesh.advance`` and a
+``mesh.keep`` span a boundary (each shard's ``segment.launch`` and
+``segment.boundary`` in shard order; each shard's ``segment.wait`` and
+the reduction) and a ``mesh.gather`` span (the paths queued to the first
+device, the abort's outcome read and selected).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from trifocal_pose_estimation_using_improved_gpuhc_torch.ops import (
     segmented,
     tracker,
 )
+from trifocal_pose_estimation_using_improved_gpuhc_torch.utils import spans
 from trifocal_pose_estimation_using_improved_gpuhc_torch.utils.config import (
     HCConfig,
     RansacConfig,
@@ -164,55 +173,63 @@ class _ShardedRun:
         self.b = _block(x0, shards)
         self.out = x0.device
         self.runs = []
-        for i, sh in enumerate(shards):
-            lo = i * self.b
-            x, t, e, k = sh.take(x0[lo:lo + self.b],
-                                 target_params[lo:lo + self.b], edgels,
-                                 intrinsics)
-            with sh.enter():
-                self.runs.append(seg.begin(x, t, e, k, n_edgels))
+        with spans.span("mesh.scatter"):
+            for i, sh in enumerate(shards):
+                lo = i * self.b
+                x, t, e, k = sh.take(x0[lo:lo + self.b],
+                                     target_params[lo:lo + self.b], edgels,
+                                     intrinsics)
+                with sh.enter():
+                    self.runs.append(seg.begin(x, t, e, k, n_edgels))
 
     def advance(self) -> None:
-        for sh, run in zip(self.shards, self.runs):
-            with sh.enter():
-                run.advance()
+        with spans.span("mesh.advance"):
+            for sh, run in zip(self.shards, self.runs):
+                with sh.enter():
+                    run.advance()
 
     def keep(self) -> bool:
         """Whether another segment runs: any shard (of any rank) keeps going
         and none has found a pose."""
-        polls = [run.poll() for run in self.runs]
-        keep = any(k for k, _ in polls)
-        found = any(f for _, f in polls)
-        if self.group is not None:
-            flags = torch.tensor([keep, found], dtype=torch.int32)
-            dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self.group)
-            keep, found = (bool(v) for v in flags.tolist())
+        with spans.span("mesh.keep"):
+            polls = [run.poll() for run in self.runs]
+            keep = any(k for k, _ in polls)
+            found = any(f for _, f in polls)
+            if self.group is not None:
+                flags = torch.tensor([keep, found], dtype=torch.int32)
+                dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=self.group)
+                keep, found = (bool(v) for v in flags.tolist())
         return keep and not found
 
-    def track_result(self) -> fused.TrackResult:
-        """This process's paths in their original order; queued, not waited
-        for."""
+    def _track_result(self) -> fused.TrackResult:
         parts = []
         for sh, run in zip(self.shards, self.runs):
             with sh.enter():
                 parts.append(run.track_result())
         return _gather(parts, self.shards, self.out)
 
+    def track_result(self) -> fused.TrackResult:
+        """This process's paths in their original order; queued, not waited
+        for."""
+        with spans.span("mesh.gather"):
+            return self._track_result()
+
     def result(self) -> segmented.SegmentedResult:
-        res = self.track_result()
-        rows = []
-        for i, (sh, run) in enumerate(zip(self.shards, self.runs)):
-            with sh.enter():
-                found, fpath, bsupp, bpath = run.outcome()
-            off = (self.rank * len(self.runs) + i) * self.b
-            rows.append([found, fpath + off if fpath >= 0 else -1, bsupp,
-                         bpath + off if bpath >= 0 else -1])
-        table = torch.tensor(rows, dtype=torch.long)
-        if self.group is not None:
-            parts = [torch.empty_like(table)
-                     for _ in range(dist.get_world_size(self.group))]
-            dist.all_gather(parts, table, group=self.group)
-            table = torch.cat(parts)
+        with spans.span("mesh.gather"):
+            res = self._track_result()
+            rows = []
+            for i, (sh, run) in enumerate(zip(self.shards, self.runs)):
+                with sh.enter():
+                    found, fpath, bsupp, bpath = run.outcome()
+                off = (self.rank * len(self.runs) + i) * self.b
+                rows.append([found, fpath + off if fpath >= 0 else -1, bsupp,
+                             bpath + off if bpath >= 0 else -1])
+            table = torch.tensor(rows, dtype=torch.long)
+            if self.group is not None:
+                parts = [torch.empty_like(table)
+                         for _ in range(dist.get_world_size(self.group))]
+                dist.all_gather(parts, table, group=self.group)
+                table = torch.cat(parts)
         table = table.numpy()
         found = bool(table[:, 0].any())
         first = int(np.argmax(table[:, 0] > 0))
